@@ -14,7 +14,14 @@
 //   data  [B, H, W, C, 4] f32, payload (x, y, z, gidx) already quantized
 //         (quantize_payload_xyz); valid [B, H, W, C] bool (1 byte);
 //   z1    [B, P, hid] f32; wgt [hid, 4] f32; bg [hid] f32;
-//   out   [B, H, W, hid + 1] f32.
+//   out   [B, H, W, hid + 1] f32;
+//   stash (training only; both null when serving): per (pixel, k),
+//         sel [B, H, W, K] int32, the selected point index or -1 where
+//         the pixel has fewer than k + 1 neighbours, and geo
+//         [B, H, W, K, 4] f32, its (dx, dy, z, dist) (0 where sel is -1).
+//         The backward (fusion_bwd.cu) rebuilds the pre-activations from
+//         them, as the TPU kernel's STASH output lets its backward skip
+//         the KNN.
 //
 // Tie order is the plain version's, not the Pallas kernel's: candidates
 // are scanned window-shift-major (di, then dj), then bin slot, and among
@@ -54,6 +61,8 @@ fusion_fwd_kernel(const float4* __restrict__ data,
                   const float* __restrict__ wgt,
                   const float* __restrict__ bg,
                   float* __restrict__ out,
+                  int* __restrict__ stash_sel,
+                  float4* __restrict__ stash_geo,
                   int B, int H, int W, int C, int P, int hid, int r,
                   float ox, float oy, float cell) {
   extern __shared__ float smem[];
@@ -126,14 +135,22 @@ fusion_fwd_kernel(const float4* __restrict__ data,
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       float* g = s_geo + (threadIdx.x * K + k) * 4;
+      int sel = -1;
       if (best_s[k] >= 0) {
         const float4 p = data[best_s[k]];
         g[0] = p.x - cx;
         g[1] = p.y - cy;
         g[2] = p.z;
         g[3] = sqrtf(fminf(best_d[k], 1e6f));
-        s_row[threadIdx.x * K + k] = b * P + (int)p.w;
+        sel = (int)p.w;
+        s_row[threadIdx.x * K + k] = b * P + sel;
         ++n;
+      }
+      if (stash_sel != nullptr) {
+        stash_sel[pix * K + k] = sel;
+        stash_geo[pix * K + k] =
+            sel >= 0 ? make_float4(g[0], g[1], g[2], g[3])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     }
     s_cnt[threadIdx.x] = n;
@@ -168,7 +185,8 @@ fusion_fwd_kernel(const float4* __restrict__ data,
 
 template <int K>
 cudaError_t launch(const void* data, const void* valid, const void* z1,
-                   const void* wgt, const void* bg, void* out, int B, int H,
+                   const void* wgt, const void* bg, void* out,
+                   void* stash_sel, void* stash_geo, int B, int H,
                    int W, int C, int P, int hid, int r, float ox, float oy,
                    float cell, cudaStream_t stream) {
   const long long npix = (long long)B * H * W;
@@ -179,8 +197,9 @@ cudaError_t launch(const void* data, const void* valid, const void* z1,
   fusion_fwd_kernel<K><<<blocks, kTile, smem, stream>>>(
       static_cast<const float4*>(data), static_cast<const uint8_t*>(valid),
       static_cast<const float*>(z1), static_cast<const float*>(wgt),
-      static_cast<const float*>(bg), static_cast<float*>(out), B, H, W, C,
-      P, hid, r, ox, oy, cell);
+      static_cast<const float*>(bg), static_cast<float*>(out),
+      static_cast<int*>(stash_sel), static_cast<float4*>(stash_geo), B, H,
+      W, C, P, hid, r, ox, oy, cell);
   return cudaGetLastError();
 }
 
@@ -188,15 +207,16 @@ cudaError_t launch(const void* data, const void* valid, const void* z1,
 
 extern "C" int dcf_fusion_fwd(const void* data, const void* valid,
                               const void* z1, const void* wgt,
-                              const void* bg, void* out, int B, int H, int W,
-                              int C, int P, int hid, int K, int r, float ox,
+                              const void* bg, void* out, void* stash_sel,
+                              void* stash_geo, int B, int H, int W, int C,
+                              int P, int hid, int K, int r, float ox,
                               float oy, float cell, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
 #define DCF_CASE(k) \
   case k:           \
-    return launch<k>(data, valid, z1, wgt, bg, out, B, H, W, C, P, hid, r, \
-                     ox, oy, cell, s);
+    return launch<k>(data, valid, z1, wgt, bg, out, stash_sel, stash_geo, \
+                     B, H, W, C, P, hid, r, ox, oy, cell, s);
     DCF_CASE(1) DCF_CASE(2) DCF_CASE(3) DCF_CASE(4)
     DCF_CASE(5) DCF_CASE(6) DCF_CASE(7) DCF_CASE(8)
 #undef DCF_CASE

@@ -182,3 +182,21 @@ def make_varied_frame(frame_id: str = "000000", seed: int = 0,
     return make_frame(frame_id=frame_id, boxes=placed, n_ground=n_ground,
                       pts_per_box=int(rng.integers(120, 400)),
                       seed=int(rng.integers(2 ** 31)))
+
+
+class SyntheticDataset:
+    """List-like dataset of deterministic synthetic frames (a copy of
+    `dcf.cli.common.SyntheticDataset`): frame i is `make_frame(seed=i)`,
+    or `make_varied_frame(seed=i)` with `varied`, the seed-varied scenes
+    (1-8 objects, 4k-18k ground points)."""
+
+    def __init__(self, num_frames: int = 16, varied: bool = False):
+        self.num_frames = num_frames
+        self.varied = varied
+
+    def __len__(self) -> int:
+        return self.num_frames
+
+    def __getitem__(self, i: int) -> Frame:
+        make = make_varied_frame if self.varied else make_frame
+        return make(frame_id=f"{i:06d}", seed=i)

@@ -132,3 +132,17 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor
     return torch.stack([xt * diag + xa, yt * diag + ya, zt * dza + za,
                         torch.exp(dxt) * dxa, torch.exp(dyt) * dya,
                         torch.exp(dzt) * dza, rt + ra], dim=-1)
+
+
+def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """SECOND-style residuals of gt box7s against anchor box7s, the
+    inverse of `decode_boxes`: [..., 7] x [..., 7] -> [..., 7]. The same
+    arithmetic as `dcf.geometry.boxes.encode_boxes_cm`, in the [N, 7]
+    layout; the angle is the raw difference (the loss applies the
+    sin-difference)."""
+    xa, ya, za, dxa, dya, dza, ra = anchors.unbind(-1)
+    xg, yg, zg, dxg, dyg, dzg, rg = gt.unbind(-1)
+    diag = torch.sqrt(dxa * dxa + dya * dya)
+    return torch.stack([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+                        torch.log(dxg / dxa), torch.log(dyg / dya),
+                        torch.log(dzg / dza), rg - ra], dim=-1)

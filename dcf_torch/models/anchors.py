@@ -8,9 +8,10 @@ Layout contract (shared by head and decode):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from dcf_torch.config import Config
 
@@ -62,3 +63,14 @@ def generate_anchors(cfg: Config) -> Tuple[np.ndarray, np.ndarray,
             np.tile(classes, H * W),
             np.tile(m_thr, H * W),
             np.tile(u_thr, H * W))
+
+
+def anchor_pack(cfg: Config, device) -> Dict[str, torch.Tensor]:
+    """The anchor arrays the target assigner reads, as tensors on
+    `device`, built once per run: boxes [N, 7] f32, classes [N] int64,
+    matched_thr / unmatched_thr [N] f32."""
+    boxes, classes, m_thr, u_thr = generate_anchors(cfg)
+    return {"boxes": torch.from_numpy(boxes).to(device),
+            "classes": torch.from_numpy(classes).to(torch.int64).to(device),
+            "matched_thr": torch.from_numpy(m_thr).to(device),
+            "unmatched_thr": torch.from_numpy(u_thr).to(device)}

@@ -12,7 +12,10 @@ a masked sum over K. Split as the reference splits it:
   - per point: binned by the host's per-scale rank (points outside the
     camera frustum or the grid carry rank -1 and never bin);
   - per pixel: KNN + geometric half + relu + K-sum in one kernel
-    (`dcf_torch.ops.fusion.fused_fusion`);
+    (`dcf_torch.ops.fusion.fused_fusion`, differentiable: in training its
+    backward kernel carries the gradient to `geo_kernel`, `geo_bias` and,
+    through z1 and the bilinear sample, to `img_proj` and the image
+    backbone);
   - the output layer over the K-sum, with the per-pair bias restored as
     count * bias: `acc[..., :hid] @ Wo + acc[..., hid:] * bo`.
 """

@@ -57,6 +57,13 @@ class ConvNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.permute(0, 3, 1, 2)
+        if y.device.type == "cpu":
+            # NCHW on the CPU: PyTorch's channels-last CPU kernels lose
+            # float32 precision in GroupNorm's statistics (relative error
+            # ~3e-3 at |mean| / std = 60, against ~1e-6 in NCHW) and can
+            # corrupt the heap in the multi-threaded backward of a
+            # strided 1x1 conv (torch 2.13.0+cpu, 8 -> 16 channels)
+            y = y.contiguous()
         y = same_pad(y, self.kernel, self.stride)
         y = F.conv2d(y, self.Conv_0.weight.to(x.dtype), stride=self.stride)
         y = F.group_norm(y, self.GroupNorm_0.num_groups,

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All `dcf_torch/csrc/*.cu` sources are compiled by ONE `nvcc` call for
-`sm_90a` into a shared library with a plain C interface (no PyTorch
-headers: a few seconds instead of minutes), written to
-`dcf_torch/_build/` and loaded with ctypes at first use. The library is
+Every `dcf_torch/csrc/*.cu` source is compiled for `sm_90a` by its own
+`nvcc` process, all started together, and one more `nvcc` call links the
+objects into a shared library with a plain C interface (no PyTorch
+headers: seconds instead of minutes), written to `dcf_torch/_build/`
+and loaded with ctypes at first use. The library is
 rebuilt when a source is newer than it. Each C entry point launches on
 the stream it is given and returns `cudaGetLastError()`; `check` turns
 a non-zero code into an exception.
@@ -28,18 +29,23 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libdcf_torch_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false",
+                              "-Xcompiler", "-fPIC", "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argument types (all return int, a cudaError_t)
 _SIGNATURES = {
-    # data, valid, z1, wgt, bg, out, B, H, W, C, P, hid, K, r,
-    # origin_x, origin_y, cell, stream
-    "dcf_fusion_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _F, _F, _P),
+    # data, valid, z1, wgt, bg, out, stash_sel, stash_geo (both null when
+    # serving), B, H, W, C, P, hid, K, r, origin_x, origin_y, cell, stream
+    "dcf_fusion_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _F, _F, _F, _P),
+    # sel, geo, z1, wgt, bg, dacc, dacc row stride, dz1, dwgt, dbg,
+    # B, H, W, K, P, hid, stream
+    "dcf_fusion_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P),
     # boxes_a, boxes_b, out, n, stream
     "dcf_clip_pairs": (_P, _P, _P, _I, _P),
 }
@@ -71,20 +77,44 @@ def _stale() -> bool:
     return any(os.path.getmtime(p) > built for p in deps)
 
 
+def _run(procs, cmds):
+    """Wait for every process; raise with the output of the first that
+    failed. Returns the processes' joined output."""
+    outs = [p.communicate() for p in procs]
+    for p, cmd, (out, err) in zip(procs, cmds, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def build(verbose: bool = False) -> str:
-    """Compile every source into LIB_PATH (atomically). Returns nvcc's
-    output (with `-Xptxas -v` when verbose: registers, spills)."""
+    """Compile every source into LIB_PATH (atomically): one nvcc process
+    per source, all at once, then one link. Returns nvcc's output (with
+    `-Xptxas -v` when verbose: registers, spills)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs, cmds = [], []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        cmds.append([nvcc, *extra, *COMPILE_FLAGS, "-o", obj, src])
+    try:
+        log = _run([subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                    for c in cmds], cmds)
+        tmp = f"{LIB_PATH}.{tag}"
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        log += _run([subprocess.Popen(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)],
+                    [link])
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
 
 
 def library() -> ctypes.CDLL:

@@ -11,7 +11,7 @@ parameters (`geo_kernel`, ...) keep their flax layout.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -74,15 +74,18 @@ def load_flax(module: nn.Module, tree: Dict) -> nn.Module:
     return module
 
 
-def flax_tree(module: nn.Module) -> Dict:
+def flax_tree(module: nn.Module, values: Optional[Dict] = None) -> Dict:
     """`module`'s parameters as a flax-layout tree of numpy arrays, the
-    inverse of `load_flax`."""
+    inverse of `load_flax`; with `values` (parameter name -> tensor, e.g.
+    gradients), those tensors in the parameters' places."""
     modules = dict(module.named_modules())
     tree: Dict = {}
     for name, p in module.named_parameters():
         parts = name.split(".")
         owner = modules[".".join(parts[:-1])]
-        value = p.detach().cpu().numpy()
+        src = p if values is None else values[name]
+        # a copy: on the CPU .numpy() would be a view of the live tensor
+        value = src.detach().cpu().numpy().copy()
         if isinstance(owner, nn.Conv2d) and parts[-1] == "weight":
             parts[-1], value = "kernel", value.transpose(2, 3, 1, 0)
         elif isinstance(owner, nn.Linear):
@@ -144,3 +147,12 @@ def init_params(cfg: Config, generator: torch.Generator, device="cuda"
                 module.geo_bias.zero_()
                 module.out_bias.zero_()
     return model.to(device).eval()
+
+
+def grads_to_flax(model: ContFuseDetector) -> Dict:
+    """The detector's gradients (`.grad` of every parameter) as
+    {"params": flax-layout tree}, the layout of `jax.grad` over the JAX
+    package's parameters; a parameter without a gradient gives zeros."""
+    return {"params": flax_tree(model, {
+        n: p.grad if p.grad is not None else torch.zeros_like(p)
+        for n, p in model.named_parameters()})}

@@ -15,6 +15,14 @@ sinf and PyTorch's may differ in the last ulp: atol 1e-4 x (1 + area).
 Served end to end in float32 (TF32 off), the card and the CPU differ by
 cuDNN's and the CPU's summation orders: chip_smoke.py's small-input
 reference, at the tolerances of tests/test_oracle_e2e.py.
+
+The fusion backward kernel sums with float32 atomics in an order that
+changes from run to run, so it is held to its plain version within
+`fusion.fusion_bwd_tolerance` (2 n u sum|terms| for a sum of n
+terms); its stash must equal the plain forward's selections exactly. One
+tiny float32 train step on the card must agree with the CPU's and give
+gradients to `img_proj`, `geo_kernel`, `geo_bias` and the image stem,
+whose only path to the loss is that kernel.
 """
 
 import numpy as np
@@ -97,6 +105,60 @@ def test_fusion_wrapper_rejects_bad_inputs(card):
             fusion.fused_fusion(*(args[:i] + [value] + args[i + 1:]))
     with pytest.raises(ValueError):
         fusion.fused_fusion(*(args[:7] + [9] + args[8:]))   # k > 8
+
+
+@pytest.mark.parametrize("k,lattice,hid", [(1, False, 64), (4, False, 64),
+                                           (4, True, 16), (8, True, 48)])
+def test_fusion_bwd_kernel_matches_plain(card, k, lattice, hid):
+    args = _fusion_args(10 + k, card, k=k, lattice=lattice, hid=hid)
+    out, stash = fusion._forward(*args, stash=True)
+    want, (sel, geo) = fusion.fused_fusion_plain(*args, stash=True)
+    assert torch.equal(out, want)
+    assert torch.equal(stash[0], sel) and torch.equal(stash[1], geo)
+    z1, wgt, bg = args[2:5]
+    dout = torch.randn(out.shape, device=card,
+                       generator=torch.Generator(card).manual_seed(k))
+    dacc = dout[..., :-1]              # a strided view, as autograd gives
+    before = fusion.fused_fusion_bwd.launches
+    got = fusion.fused_fusion_bwd(stash, z1, wgt, bg, dacc)
+    assert fusion.fused_fusion_bwd.launches == before + 1
+    ref = fusion.fused_fusion_bwd_plain(stash, z1, wgt, bg, dacc)
+    tols = fusion.fusion_bwd_tolerance(stash, z1, wgt, bg, dacc)
+    for a, b, tol in zip(got, ref, tols):
+        assert a.shape == b.shape and bool(((a - b).abs() <= tol).all())
+    assert got[0].abs().sum() > 0
+
+
+def test_fused_fusion_autograd_on_card(card):
+    """`fused_fusion` with autograd on CUDA tensors: one forward launch
+    (with the stash), one backward launch, the plain version's gradients;
+    under no_grad a forward launch alone."""
+    args = list(_fusion_args(3, card))
+    for i in (2, 3, 4):
+        args[i] = args[i].clone().requires_grad_()
+    launches = (fusion.fused_fusion.launches,
+                fusion.fused_fusion_bwd.launches)
+    out = fusion.fused_fusion(*args)
+    dout = torch.randn_like(out)
+    (out * dout).sum().backward()
+    assert (fusion.fused_fusion.launches - launches[0],
+            fusion.fused_fusion_bwd.launches - launches[1]) == (1, 1)
+    _, stash = fusion.fused_fusion_plain(*args, stash=True)
+    plain = [t.detach() for t in args[2:5]]
+    ref = fusion.fused_fusion_bwd_plain(stash, *plain, dout[..., :-1])
+    tols = fusion.fusion_bwd_tolerance(stash, *plain, dout[..., :-1])
+    for p, r, tol in zip(args[2:5], ref, tols):
+        assert bool(((p.grad - r).abs() <= tol).all())
+    with torch.no_grad():
+        assert fusion.fused_fusion(*args).grad_fn is None
+    assert fusion.fused_fusion_bwd.launches - launches[1] == 1
+
+
+def test_tiny_train_step_on_card_matches_cpu(card):
+    """chip_smoke.py's small-input training reference: one tiny float32
+    train step, card (4 + 4 + 1 launches) against CPU, every gradient leaf,
+    and gradients for the parameters behind the fusion backward."""
+    chip_smoke.check_tiny_train()
 
 
 def test_clip_kernel_matches_plain(card):
