@@ -36,12 +36,34 @@ Phases, each printed on its own line with the seconds elapsed:
      warm-up and 8 timed steps; finite losses and parameters, num_pos > 0,
      exactly 4 fusion forward, 4 fusion backward and 1 clip launches per
      step, a checkpoint restored into a fresh state; step p50 / p95 ms and
-     peak memory.
+     peak memory;
+  8. KNN selection: the KNN kernel against its plain version at the four
+     scales of phase 3's frame and on a quarter-cell lattice with exact
+     ties (valid and dist2 bit-equal, nbr bit-equal where valid); kernel,
+     plain and bound ms; then the standalone KNN-selection path
+     (`knn_select_dense` at the four scales) with its launches counted;
+  9. the int8 micro-benchmark (`dcf_torch.tools.bench_int8_mma.run`):
+     both kernels of `int8_mma.cu` against their plain version (int8
+     exact, bf16 within its float32 bound), times, rates, bounds, the
+     `torch._int_mm` / `torch.matmul` times and the speedup;
+ 10. int8 serving: `multi_scale_config()` in bf16 with seeded random
+     weights, calibrated on 8 varied frames, then 8 frames at B=1 through
+     `make_inference_fn(quant_config(cfg), ...)`: finite outputs, 4 fusion
+     and 1 clip launches per frame, the int32 products of the first BEV
+     ConvNorm and of the largest image ConvNorm bit-equal between
+     `torch._int_mm` and the float64 plain conv on the card; p50 / p95
+     beside phase 6's bf16 p50, the head maps' relative L2 distance int8
+     vs bf16, peak memory;
+ 11. a small int8 reference: `tiny_config` in float32 and int8 with the
+     same weights and calibration on the card and on the CPU: every
+     ConvNorm's int32 product on the card, fed the card's activation,
+     equal to the CPU's plain conv of it; head maps within INT8_REL_L2 of
+     the int8-vs-float32 distance.
 
 Then one JSON line describing every kernel (launches: the sum over the
-serving and training runs, and per path), and last the line
-`{"ok": true, "device": {...}}`. Any failure raises, and the script
-exits non-zero without a result; so it does without a CUDA device.
+paths, and per path), and last the line `{"ok": true, "device": {...}}`.
+Any failure raises, and the script exits non-zero without a result; so
+it does without a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +76,8 @@ import time
 
 import numpy as np
 
+from dcf_torch.utils.timing import cuda_ms, graph_ms
+
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -65,52 +89,16 @@ FUSION_TOL = 1e-5                 # x max|out|: same arithmetic, same order
 CLIP_TOL = 1e-4                   # x (1 + area): cosf/sinf may differ by an ulp
 TINY_ATOL, TINY_RTOL = 2e-4, 2e-3  # x max|pred|; tests/test_oracle_e2e.py
 TINY_GRAD_ATOL = 1e-3             # x max|want|; tests/test_torch_train.py
+# int8 head maps, relative L2 distance between two runs (card and CPU)
+# over the distance int8 vs float32: float32 noise flips a few roundings
+# by one step and each flip moves every later layer, so one per-element
+# bound does not hold end to end; independent quantization noise would
+# sit near sqrt(2) (tests/test_torch_quant.py)
+INT8_REL_L2 = 0.75
 
 
 def log(msg: str) -> None:
     print(f"[{time.time() - T0:7.1f}s] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` back-to-back calls after 2 warm-up
-    calls, CUDA events around them: the host's cost per call is in the
-    reading wherever it exceeds the device's."""
-    import torch
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Mean device ms per call of `fn`, the host out of the reading:
-    `reps` calls captured in one CUDA graph, replayed `replays` times
-    between CUDA events after a warm-up call and a warm-up replay."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
 
 
 def selected_rows(sel, P: int) -> int:
@@ -693,7 +681,337 @@ def serve(device):
         f"p95 {np.percentile(times, 95):.3f} ms, per frame "
         f"{[round(t, 3) for t in times]} ms, {n_valid} valid detections, "
         f"launches {launches}")
+    return launches, float(np.percentile(times, 50))
+
+
+def knn_bound(data, valid, k: int, r: int):
+    """(bytes, operations) that one KNN selection of these bins needs:
+    the valid mask read once, the payload of its valid slots, nbr / ok /
+    dist2 written once; 5 f32 operations (2 sub, 2 mul, 1 add) per valid
+    candidate of a window."""
+    import torch
+    import torch.nn.functional as F
+    B, H, W, C, D = data.shape
+    n_bytes = (valid.numel() + 4 * D * int(valid.sum())
+               + B * H * W * k * (4 * D + 1 + 4))
+    per_cell = valid.sum(-1, dtype=torch.float32)[:, None]
+    win = 2 * r + 1
+    cands = F.conv2d(F.pad(per_cell, (r, r, r, r)),
+                     torch.ones((1, 1, win, win), device=data.device)).sum()
+    return n_bytes, 5.0 * cands.item()
+
+
+def knn_lattice_bins(device, H=352, W=400, P=200000, C=8):
+    """Bins of P points on a quarter-cell lattice over an H x W grid of
+    1 m cells (the s2 grid's size): many candidates at exactly equal
+    distances from a pixel centre."""
+    import torch
+    from dcf_torch.ops.knn import bin_points_dense
+    rng = np.random.default_rng(7)
+    pts = np.zeros((1, P, 4), np.float32)
+    pts[..., 0] = rng.integers(0, 4 * H, (1, P)) / 4 + 0.125
+    pts[..., 1] = rng.integers(0, 4 * W, (1, P)) / 4 + 0.125
+    pts[..., 2] = rng.uniform(-2, 2, (1, P))
+    pts[..., 3] = np.arange(P)
+    return bin_points_dense(torch.from_numpy(pts).to(device),
+                            torch.ones((1, P), dtype=torch.bool,
+                                       device=device),
+                            (0.0, 0.0), 1.0, (H, W), C)
+
+
+def check_knn(cfg, example, device):
+    """The KNN kernel against its plain version: the four scales of phase
+    3's frame and a tie lattice; bit-equal valid / dist2, and nbr where
+    valid."""
+    import torch
+    from dcf_torch.ops.knn import DenseBins, knn_select_dense, \
+        knn_select_plain
+    rng = np.random.default_rng(0)
+    k, r = cfg.fusion.num_neighbors, cfg.fusion.search_radius_cells
+    cases = [(f"s{s}", DenseBins(args[0], args[1]), args[5], args[6])
+             for s, args in fusion_inputs(cfg, example, device, rng)]
+    cases.append(("lattice", knn_lattice_bins(device), (0.0, 0.0), 1.0))
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for name, bins, origin, cell in cases:
+        got = knn_select_dense(bins, origin, cell, k, r)
+        want = knn_select_plain(bins, origin, cell, k, r)
+        torch.cuda.synchronize()
+        v = want[1]
+        if not (torch.equal(got[1], v) and torch.equal(got[2], want[2])
+                and torch.equal(got[0][v], want[0][v])):
+            raise RuntimeError(f"knn {name}: kernel and plain version "
+                               f"disagree")
+        d2 = want[2]
+        ties = int(((d2[..., 1:] == d2[..., :-1]) & v[..., 1:]).sum())
+        ms = graph_ms(lambda: knn_select_dense(bins, origin, cell, k, r))
+        plain = cuda_ms(lambda: knn_select_plain(bins, origin, cell, k, r),
+                        3)
+        n_bytes, n_ops = knn_bound(bins.data, bins.valid, k, r)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"knn {name}: {tuple(bins.data.shape[1:3])} px, {int(v.sum())} "
+            f"neighbours, {ties} equal-distance neighbours, bit-equal; "
+            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {n_bytes} bytes)")
+        if name == "lattice":
+            if ties < 1000:
+                raise RuntimeError(f"knn lattice: only {ties} ties")
+            continue
+        for key, val in (("ms", ms), ("plain_ms", plain),
+                         ("bytes", n_bytes), ("ops", n_ops)):
+            tot[key] += val
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
+    log(f"knn: 4 scales {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "knn_select", "route": "cuda",
+            "source": "dcf_torch/csrc/knn.cu",
+            "replaces": "dcf/ops/pallas/knn_kernel.py:61",
+            "max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def knn_path(cfg, example, device):
+    """The standalone KNN-selection path: `knn_select_dense` over the
+    binned points of one frame at every fusion scale."""
+    import torch
+    from dcf_torch.ops.knn import DenseBins, knn_select_dense
+    rng = np.random.default_rng(0)
+    inputs = fusion_inputs(cfg, example, device, rng)
+    knn_select_dense.launches = 0
+    n = 0
+    for s, args in inputs:
+        nbr, ok, d2 = knn_select_dense(DenseBins(args[0], args[1]), args[5],
+                                       args[6], args[7], args[8])
+        n += int(ok.sum())
+    torch.cuda.synchronize()
+    launches = {"knn_select": knn_select_dense.launches}
+    if launches["knn_select"] != len(inputs) or n == 0:
+        raise RuntimeError(f"knn path: launches {launches}, {n} neighbours")
+    log(f"knn path: {len(inputs)} scales, {n} neighbours, launches "
+        f"{launches}")
     return launches
+
+
+def int8_bench(device):
+    """Phase 9: the micro-benchmark's entry point, its launches counted."""
+    from dcf_torch.ops import int8_mma
+    from dcf_torch.tools import bench_int8_mma
+    int8_mma.selection_mma_int8.launches = 0
+    int8_mma.selection_mma_bf16.launches = 0
+    r = bench_int8_mma.run(device)
+    launches = {"selection_mma": int8_mma.selection_mma_int8.launches,
+                "selection_mma_bf16": int8_mma.selection_mma_bf16.launches}
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"int8 bench: launches {launches}")
+    i8, bf = r["int8"], r["bf16"]
+    log(f"int8 bench: {r['blocks']} blocks, int8 {i8['ms']:.4f} ms "
+        f"({i8['rate']:.1f} TOP/s, bound {i8['bound_ms']:.4f} ms, "
+        f"_int_mm {i8['library_ms']:.4f} ms, plain {i8['plain_ms']:.3f} ms), "
+        f"bf16 {bf['ms']:.4f} ms ({bf['rate']:.1f} TF/s, bound "
+        f"{bf['bound_ms']:.4f} ms, matmul {bf['library_ms']:.4f} ms, plain "
+        f"{bf['plain_ms']:.3f} ms, max|err| {bf['max_abs_err']:.3g}), "
+        f"speedup {r['speedup']:.3f}x, launches {launches}")
+    entry = {"name": "selection_mma", "route": "cuda",
+             "source": "dcf_torch/csrc/int8_mma.cu",
+             "replaces": "scripts/bench_int8_fusion_matmul.py:33",
+             "max_abs_err": i8["max_abs_err"], "ms": i8["ms"],
+             "plain_ms": i8["plain_ms"], "bound_ms": i8["bound_ms"],
+             "bound_by": "operations", "library_ms": i8["library_ms"],
+             "blocks": r["blocks"], "speedup_over_bf16": r["speedup"],
+             "bf16": {"launches": launches["selection_mma_bf16"],
+                      "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+                      "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+                      "bound_by": "operations",
+                      "library_ms": bf["library_ms"]}}
+    return entry, launches
+
+
+def _head_rel_l2(got, want):
+    import torch
+    return {k: (torch.linalg.vector_norm((got[k] - want[k]).double())
+                / torch.linalg.vector_norm(want[k].double())).item()
+            for k in want}
+
+
+def _capture_inputs(model, names):
+    """Forward pre-hooks recording the input of each named module."""
+    inputs, hooks = {}, []
+    mods = dict(model.named_modules())
+    for name in names:
+        hooks.append(mods[name].register_forward_pre_hook(
+            lambda mod, args, name=name: inputs.__setitem__(name, args[0])))
+    return inputs, hooks
+
+
+def serve_int8(device, bf16_p50: float):
+    """Phase 10: int8 serving of the flagship at full width."""
+    import torch
+    from dcf_torch.config import multi_scale_config
+    from dcf_torch.data.preprocess import frame_to_example, stack_examples
+    from dcf_torch.data.synthetic import make_varied_frame
+    from dcf_torch.eval.inference import batch_to_device, make_inference_fn
+    from dcf_torch.models.layers import ConvNorm
+    from dcf_torch.ops import int8
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion, fused_fusion_bwd
+    from dcf_torch.ops.knn import knn_select_dense
+    from dcf_torch.params import from_flax, init_params, to_flax
+    from dcf_torch.quant import calibrate, quant_config
+    cfg = multi_scale_config()
+    cfg8 = quant_config(cfg)
+
+    def frames(seeds):
+        return [stack_examples([frame_to_example(make_varied_frame(seed=s),
+                                                 cfg)]) for s in seeds]
+    model = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    t = time.time()
+    quant = calibrate(cfg, model, frames(range(100, 108)))
+    torch.cuda.synchronize()
+    calib_s = time.time() - t
+    model8 = from_flax({**to_flax(model), **quant}, cfg8, device=device)
+    infer8 = make_inference_fn(cfg8, model8, device=device)
+    batches = frames(range(9))
+    norms = [n for n, m in model8.named_modules() if isinstance(m, ConvNorm)]
+    infer8(batches[-1])                             # warm-up frame
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_fusion.launches = fused_fusion_bwd.launches = 0
+    clip.launches = knn_select_dense.launches = int8.int8_conv2d.launches = 0
+    times, n_valid = [], 0
+    for batch in batches[:-1]:
+        t = time.perf_counter()
+        dets = infer8(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if not (torch.isfinite(dets["boxes"]).all()
+                and torch.isfinite(dets["scores"]).all()):
+            raise RuntimeError("int8 serving: non-finite detections")
+        n_valid += int(dets["valid"].sum())
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"fusion_fwd": fused_fusion.launches,
+                "fusion_bwd": fused_fusion_bwd.launches,
+                "clip_pairs": clip.launches,
+                "knn_select": knn_select_dense.launches}
+    n = len(times)
+    expect = {"fusion_fwd": len(cfg.backbone.fusion_strides) * n,
+              "fusion_bwd": 0, "clip_pairs": n, "knn_select": 0}
+    n_convs = int8.int8_conv2d.launches
+    if launches != expect or n_convs != len(norms) * n:
+        raise RuntimeError(f"int8 serving launches {launches}, int8 convs "
+                           f"{n_convs}; expected {expect} and "
+                           f"{len(norms) * n}")
+
+    # one frame: the head maps against bf16, and the int32 products of the
+    # first BEV ConvNorm and the largest image ConvNorm, _int_mm against
+    # the float64 plain conv
+    first = "bev_stage0_block0.ConvNorm_0"
+    image = [nm for nm in norms if nm.startswith("image_backbone.")]
+    inputs, hooks = _capture_inputs(model8, [first] + image)
+    b = batch_to_device(batches[0], device)
+    with torch.no_grad():
+        maps8 = model8(b)
+        maps = model(b)
+    for h in hooks:
+        h.remove()
+    mods = dict(model8.named_modules())
+
+    def macs(nm):
+        x, m = inputs[nm], mods[nm]
+        ho, wo = -(-x.shape[1] // m.stride), -(-x.shape[2] // m.stride)
+        return x.shape[0] * ho * wo * m.Conv_0.weight[0].numel() \
+            * m.Conv_0.out_channels
+    largest = max(image, key=macs)
+    for nm in (first, largest):
+        xq, wq, _, _ = mods[nm].quantized(inputs[nm])
+        got = int8.int8_conv2d_mm(xq, wq, mods[nm].stride)
+        want = int8.int8_conv2d_plain(xq, wq, mods[nm].stride)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"int8 serving: {nm} _int_mm and float64 "
+                               f"conv differ")
+        log(f"int8 serving: {nm} int32 product {tuple(got.shape)} (K = "
+            f"{wq[0].numel()}) bit-equal, _int_mm vs float64 conv")
+    rel = _head_rel_l2(maps8, maps)
+    log(f"int8 serving: multi_scale_config int8 (bf16 elsewhere), "
+        f"calibrated on 8 frames in {calib_s:.2f} s, {n} frames at B=1: "
+        f"p50 {np.percentile(times, 50):.3f} ms, p95 "
+        f"{np.percentile(times, 95):.3f} ms (bf16 p50 {bf16_p50:.3f} ms "
+        f"above), per frame {[round(t, 3) for t in times]} ms, {n_valid} "
+        f"valid detections, head maps int8 vs bf16 relative L2 "
+        f"{ {k: round(v, 5) for k, v in rel.items()} }, peak memory "
+        f"{peak / 2 ** 30:.3f} GiB, launches {launches}, {n_convs} int8 "
+        f"convs ({len(norms)} ConvNorms per frame)")
+    return launches
+
+
+def check_tiny_int8():
+    """Phase 11: tiny_config in float32 and int8, same weights and
+    calibration, card against CPU."""
+    import dataclasses
+    import torch
+    from dcf_torch.config import tiny_config
+    from dcf_torch.data.preprocess import frame_to_example, stack_examples
+    from dcf_torch.data.synthetic import make_frame, make_varied_frame
+    from dcf_torch.eval.inference import batch_to_device, make_inference_fn
+    from dcf_torch.models.layers import ConvNorm
+    from dcf_torch.ops import int8
+    from dcf_torch.params import from_flax, init_params, to_flax
+    from dcf_torch.quant import calibrate, quant_config
+    cfg = tiny_config(True)
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dtype="float32"))
+    cfg8 = quant_config(cfg)
+    calib = [stack_examples([frame_to_example(make_varied_frame(seed=s),
+                                              cfg)]) for s in (1, 2)]
+    batch = stack_examples([frame_to_example(make_frame(seed=0), cfg)])
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = {**to_flax(cpu), **calibrate(cfg, cpu, calib)}
+    cpu8 = from_flax(tree, cfg8, device="cpu")
+    gpu8 = from_flax(tree, cfg8, device="cuda")
+    norms = [n for n, m in gpu8.named_modules() if isinstance(m, ConvNorm)]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False     # a float32 reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        inputs, hooks = _capture_inputs(gpu8, norms)
+        with torch.no_grad():
+            want = cpu8(batch_to_device(batch, "cpu"))
+            f32 = cpu(batch_to_device(batch, "cpu"))
+            got = gpu8(batch_to_device(batch, "cuda"))
+        for h in hooks:
+            h.remove()
+        dets = make_inference_fn(cfg8, gpu8, device="cuda")(batch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    mods = dict(gpu8.named_modules())
+    for nm in norms:            # each layer fed the card's own activation
+        xq, wq, _, _ = mods[nm].quantized(inputs[nm])
+        y = int8.int8_conv2d(xq, wq, mods[nm].stride)
+        if not torch.equal(y.cpu(), int8.int8_conv2d_plain(
+                xq.cpu(), wq.cpu(), mods[nm].stride)):
+            raise RuntimeError(f"tiny int8: {nm} card product differs")
+    got = {k: v.cpu() for k, v in got.items()}
+    dist, noise = _head_rel_l2(got, want), _head_rel_l2(want, f32)
+    scale = {k: max(want[k].abs().max().item(), 1e-3) for k in want}
+    within = {k: float(torch.isclose(got[k].double(), want[k].double(),
+                                     atol=TINY_ATOL * scale[k],
+                                     rtol=TINY_RTOL).double().mean())
+              for k in want}
+    for k in want:
+        if not (torch.isfinite(got[k]).all() and noise[k] > 1e-3
+                and dist[k] < INT8_REL_L2 * noise[k]):
+            raise RuntimeError(f"tiny int8 {k}: card vs CPU relative L2 "
+                               f"{dist[k]}, int8 vs float32 {noise[k]}")
+    if not torch.isfinite(dets["boxes"]).all():
+        raise RuntimeError("tiny int8: non-finite detections")
+    log(f"tiny int8 reference (float32 elsewhere): {len(norms)} ConvNorm "
+        f"int32 products on the card equal the CPU's; head maps card vs "
+        f"CPU relative L2 { {k: round(v, 5) for k, v in dist.items()} } "
+        f"against int8 vs float32 "
+        f"{ {k: round(v, 5) for k, v in noise.items()} } (limit "
+        f"{INT8_REL_L2} x); share within phase 4's float32 tolerance "
+        f"{ {k: round(v, 4) for k, v in within.items()} }")
 
 
 def main() -> int:
@@ -736,7 +1054,14 @@ def main() -> int:
                check_fusion_bwd(cfg, example, device), check_clip(device)]
     check_tiny_reference()
     check_tiny_train()
-    paths = {"serving": serve(device), "training": train_full(device)}
+    serving, bf16_p50 = serve(device)
+    paths = {"serving": serving, "training": train_full(device)}
+    kernels.append(check_knn(cfg, example, device))
+    paths["knn_select"] = knn_path(cfg, example, device)
+    mma, paths["int8_bench"] = int8_bench(device)
+    kernels.append(mma)
+    paths["int8_serving"] = serve_int8(device, bf16_p50)
+    check_tiny_int8()
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

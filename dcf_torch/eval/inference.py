@@ -34,8 +34,20 @@ def make_inference_fn(cfg: Config, model: ContFuseDetector, device="cuda"
     "classes" [B, D], "valid" [B, D]} as tensors on `device`.
 
     `model` is moved to `device` and put in eval mode; the anchors are
-    built once and kept there.
+    built once and kept there. An int8 model (`quant_config(cfg)`,
+    `dcf_torch.quant`) serves with the calibration in its buffers; one
+    that was never calibrated is refused.
     """
+    mode = cfg.backbone.quant_mode
+    if model.cfg.backbone.quant_mode != mode:
+        raise ValueError(f"make_inference_fn: cfg asks for quant_mode "
+                         f"{mode!r}, the model was built for "
+                         f"{model.cfg.backbone.quant_mode!r}")
+    if mode == "int8" and not any(
+            bool(b.any()) for n, b in model.named_buffers()
+            if n.endswith("in_amax")):
+        raise ValueError("make_inference_fn: int8 model without a "
+                         "calibration (every in_amax is 0)")
     device = resolve_device(device)
     model = model.to(device).eval()
     anchors, classes, _, _ = generate_anchors(cfg)

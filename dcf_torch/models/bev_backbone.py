@@ -20,15 +20,17 @@ class BEVFPN(nn.Module):
         self.cfg = cfg
         self.strides = sorted(in_channels)
         top = max(self.strides)
-        f = cfg.fpn_channels
-        self.ConvNorm_0 = ConvNorm(in_channels[top], f, 1, 1, act=False)
+        f, q = cfg.fpn_channels, cfg.quant_mode
+        self.ConvNorm_0 = ConvNorm(in_channels[top], f, 1, 1, act=False,
+                                   quant=q)
         ci, stride = 1, top
         while stride > cfg.head_stride:
             stride //= 2
             self.add_module(f"ConvNorm_{ci}",
-                            ConvNorm(in_channels[stride], f, 1, 1, act=False))
+                            ConvNorm(in_channels[stride], f, 1, 1, act=False,
+                                     quant=q))
             ci += 1
-        self.add_module(f"ConvNorm_{ci}", ConvNorm(f, f, 3, 1))
+        self.add_module(f"ConvNorm_{ci}", ConvNorm(f, f, 3, 1, quant=q))
         self.num_convs = ci + 1
 
     def forward(self, feats: Dict[int, torch.Tensor]) -> torch.Tensor:

@@ -46,7 +46,8 @@ class ContFuseDetector(nn.Module):
             for b in range(bb.bev_blocks_per_stage[stage]):
                 first = b == 0
                 block = BasicBlock(cin, c, stride=2 if first and not s0 else 1,
-                                   entry_kernel=2 if first and s0 else 3)
+                                   entry_kernel=2 if first and s0 else 3,
+                                   quant=bb.quant_mode)
                 self.add_module(f"bev_stage{stage}_block{b}", block)
                 cin = c
             stride *= 2

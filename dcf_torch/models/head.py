@@ -35,7 +35,8 @@ class DetectionHead(nn.Module):
         c = cfg.head.head_channels
         for i in range(cfg.head.num_convs):
             self.add_module(f"ConvNorm_{i}",
-                            ConvNorm(in_channels if i == 0 else c, c, 3, 1))
+                            ConvNorm(in_channels if i == 0 else c, c, 3, 1,
+                                     quant=cfg.backbone.quant_mode))
         cin = c if cfg.head.num_convs else in_channels
         self.cls = nn.Conv2d(cin, A, 1)
         self.reg = nn.Conv2d(cin, A * 7, 1)

@@ -23,12 +23,14 @@ class ImageBackbone(nn.Module):
         super().__init__()
         self.cfg = cfg
         chans = cfg.image_stage_channels
-        self.ConvNorm_0 = ConvNorm(48, chans[0], 1, 1)
+        q = cfg.quant_mode
+        self.ConvNorm_0 = ConvNorm(48, chans[0], 1, 1, quant=q)
         bi, cin = 0, chans[0]
         for stage, c in enumerate(chans):
             for b in range(cfg.image_blocks_per_stage[stage]):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                self.add_module(f"BasicBlock_{bi}", BasicBlock(cin, c, stride))
+                self.add_module(f"BasicBlock_{bi}",
+                                BasicBlock(cin, c, stride, quant=q))
                 bi, cin = bi + 1, c
 
     def forward(self, image: torch.Tensor) -> Dict[int, torch.Tensor]:

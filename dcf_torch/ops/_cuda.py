@@ -48,6 +48,13 @@ _SIGNATURES = {
                        _I, _I, _I, _P),
     # boxes_a, boxes_b, out, n, stream
     "dcf_clip_pairs": (_P, _P, _P, _I, _P),
+    # data, valid, nbr, ok, dist2, B, H, W, C, D, K, r, origin_x,
+    # origin_y, cell, stream
+    "dcf_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _F, _F, _P),
+    # slab, oh transposed, out, blocks, stream
+    "dcf_selection_mma_int8": (_P, _P, _P, _I, _P),
+    "dcf_selection_mma_bf16": (_P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -32,7 +32,7 @@ from typing import Tuple
 import torch
 
 from dcf_torch.ops import _cuda
-from dcf_torch.ops.knn import DenseBins, cell_centers, knn_select_dense
+from dcf_torch.ops.knn import DenseBins, cell_centers, knn_select_plain
 
 MAX_NEIGHBORS = 8      # the kernel's insertion list is unrolled up to this
 
@@ -79,7 +79,7 @@ def fused_fusion_plain(data: torch.Tensor, valid: torch.Tensor,
       distance order), so the two agree bit for bit on the card.
     """
     B, H, W = data.shape[:3]
-    nbr, nvalid, d2 = knn_select_dense(DenseBins(data, valid), origin,
+    nbr, nvalid, d2 = knn_select_plain(DenseBins(data, valid), origin,
                                        cell_size, k, radius_cells)
     cx, cy = cell_centers(H, W, origin, cell_size, data.device)
     gx = nbr[..., 0] - cx[..., None]                         # [B, H, W, k]

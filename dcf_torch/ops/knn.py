@@ -1,21 +1,40 @@
 """Grid-hash K-nearest-neighbour search over BEV space (torch), mirroring
-the dense (payload) form of `dcf.ops.knn`.
+`dcf.ops.knn`: the index form (`bin_points`, `knn_query_grid`) and the
+dense (payload) form (`bin_points_dense`, `knn_select_dense`).
 
 Points are binned into a fixed-capacity grid (stable by arrival order),
 then each pixel takes the K nearest binned points of its (2r+1)^2 cell
 window by BEV distance to the pixel centre. Candidates are scanned
 window-shift-major, then bin slot; equal distances go to the earlier
 candidate. This is the selection the fusion kernel reproduces.
+
+`knn_select_dense` replaces the TPU kernel
+`dcf/ops/pallas/knn_kernel.py::_knn_kernel`: on a CUDA tensor it launches
+`dcf_torch/csrc/knn.cu`, on a CPU tensor it runs `knn_select_plain`.
+The TPU kernel scans bin slot first (`for c`, then the window), so at
+equal distances it can pick other points than its jnp twin; the port
+follows the twin.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from dcf_torch.ops import _cuda
+
 _BIG = 1e30
+
+
+class BinTable(NamedTuple):
+    """Fixed-capacity point bins over an H x W grid (index form)."""
+
+    indices: torch.Tensor  # [H * W, capacity] int32 point index, clamped
+    valid: torch.Tensor    # [H * W, capacity] bool slot validity
+    shape: Tuple[int, int]
 
 
 class DenseBins(NamedTuple):
@@ -35,6 +54,98 @@ def _rank_within_runs(sorted_vals: torch.Tensor) -> torch.Tensor:
     return iota - run_start
 
 
+def _cell_ids(xy: torch.Tensor, mask: torch.Tensor,
+              origin: Tuple[float, float], cell_size: float,
+              grid_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per point (x, y) its grid cell (ix, iy) as int64, and whether it is
+    valid and inside the grid."""
+    H, W = grid_hw
+    ix = torch.floor((xy[..., 0] - origin[0]) / cell_size).to(torch.int64)
+    iy = torch.floor((xy[..., 1] - origin[1]) / cell_size).to(torch.int64)
+    inb = mask & (ix >= 0) & (ix < H) & (iy >= 0) & (iy < W)
+    return (ix, iy), inb
+
+
+def bin_points(points_xy: torch.Tensor, mask: torch.Tensor,
+               origin: Tuple[float, float], cell_size: float,
+               grid_hw: Tuple[int, int], capacity: int) -> BinTable:
+    """Scatter point indices into fixed-capacity grid bins.
+
+    Args:
+      points_xy: [P, 2] BEV coordinates (metres).
+      mask: [P] bool point validity.
+      origin: (x0, y0) of grid cell (0, 0).
+      cell_size: cell edge length in metres.
+      grid_hw: (H, W) cell counts.
+      capacity: max points kept per cell (later points dropped).
+
+    Returns:
+      BinTable: a cell keeps its first `capacity` valid points in
+      arrival order; empty slots hold index 0 and valid False.
+    """
+    H, W = grid_hw
+    (ix, iy), inb = _cell_ids(points_xy, mask, origin, cell_size, grid_hw)
+    n_slots = H * W * capacity
+    cell = torch.where(inb, ix * W + iy, H * W)
+    sorted_cell, order = torch.sort(cell, stable=True)
+    rank = _rank_within_runs(sorted_cell)
+    ok = (rank < capacity) & (sorted_cell < H * W)
+    flat = torch.where(ok, sorted_cell * capacity + rank, n_slots)  # drop
+    table = torch.full((n_slots + 1,), -1, dtype=torch.int32,
+                       device=points_xy.device)
+    table[flat] = order.to(torch.int32)
+    table = table[:n_slots]
+    valid = table >= 0
+    indices = torch.where(valid, table, 0)
+    return BinTable(indices.reshape(H * W, capacity),
+                    valid.reshape(H * W, capacity), (H, W))
+
+
+def knn_query_grid(table: BinTable, points_xy: torch.Tensor,
+                   origin: Tuple[float, float], cell_size: float,
+                   k: int, radius_cells: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K nearest binned points for every grid cell centre.
+
+    Candidates are the (2r+1)^2 cells' slots, window row-major then slot;
+    among equal distances the earlier candidate wins (`lax.top_k`'s rule
+    in the reference: a stable sort here).
+
+    Returns:
+      idx: [H * W, k] int32 point indices (clamped; check valid).
+      valid: [H * W, k] bool.
+      dist2: [H * W, k] float32 squared BEV distances (inf where invalid).
+    """
+    H, W = table.shape
+    C = table.indices.shape[1]
+    win = 2 * radius_cells + 1
+    dev = points_xy.device
+    cx, cy = cell_centers(H, W, origin, cell_size, dev)
+    centers = torch.stack([cx.expand(H, W), cy.expand(H, W)],
+                          dim=-1).reshape(H * W, 2)
+
+    rows = torch.arange(H, device=dev)[:, None].expand(H, W).reshape(-1, 1)
+    cols = torch.arange(W, device=dev)[None, :].expand(H, W).reshape(-1, 1)
+    offs = torch.arange(-radius_cells, radius_cells + 1, device=dev)
+    ni = rows + offs.repeat_interleave(win)[None]            # [H*W, win^2]
+    nj = cols + offs.repeat(win)[None]
+    n_ok = (ni >= 0) & (ni < H) & (nj >= 0) & (nj < W)
+    ncell = torch.where(n_ok, ni * W + nj, 0)
+
+    cand_idx = table.indices[ncell].reshape(H * W, win * win * C)
+    cand_valid = (table.valid[ncell]
+                  & n_ok[..., None]).reshape(H * W, win * win * C)
+    cand_xy = points_xy[cand_idx.to(torch.int64)]            # [HW, 9C, 2]
+    dx = cand_xy[..., 0] - centers[:, None, 0]
+    dy = cand_xy[..., 1] - centers[:, None, 1]
+    d2 = torch.where(cand_valid, dx * dx + dy * dy, torch.inf)
+
+    d2s, sel = torch.sort(d2, dim=1, stable=True)
+    sel = sel[:, :k]
+    return (torch.gather(cand_idx, 1, sel), torch.gather(cand_valid, 1, sel),
+            d2s[:, :k])
+
+
 def bin_points_dense(points: torch.Tensor, mask: torch.Tensor,
                      origin: Tuple[float, float], cell_size: float,
                      grid_hw: Tuple[int, int], capacity: int) -> DenseBins:
@@ -51,9 +162,7 @@ def bin_points_dense(points: torch.Tensor, mask: torch.Tensor,
     H, W = grid_hw
     B, P, D = points.shape
     dev = points.device
-    ix = torch.floor((points[..., 0] - origin[0]) / cell_size).to(torch.int64)
-    iy = torch.floor((points[..., 1] - origin[1]) / cell_size).to(torch.int64)
-    inb = mask & (ix >= 0) & (ix < H) & (iy >= 0) & (iy < W)
+    (ix, iy), inb = _cell_ids(points, mask, origin, cell_size, grid_hw)
     bi = torch.arange(B, device=dev)[:, None]
     n_slots = B * H * W * capacity
     cell = torch.where(inb, (bi * H + ix) * W + iy, B * H * W).reshape(-1)
@@ -81,10 +190,11 @@ def cell_centers(H: int, W: int, origin: Tuple[float, float],
     return cx[:, None], cy[None, :]
 
 
-def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
+def knn_select_plain(bins: DenseBins, origin: Tuple[float, float],
                      cell_size: float, k: int, radius_cells: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K nearest point payloads for every grid cell centre.
+    """K nearest point payloads for every grid cell centre: the plain
+    PyTorch version (the KNN kernel's contract).
 
     Returns:
       nbr:   [B, H, W, k, D] selected payloads (undefined where invalid).
@@ -123,3 +233,54 @@ def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
         d2 = d2.scatter(-1, best, _BIG)
     return (torch.stack(nbrs, dim=3), torch.stack(valids, dim=3),
             torch.stack(dists, dim=3))
+
+
+MAX_NEIGHBORS = 8      # the kernel's insertion list is unrolled up to this
+
+
+def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
+                     cell_size: float, k: int, radius_cells: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K nearest point payloads for every grid cell centre (same arguments
+    and results as `knn_select_plain`): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. The kernel writes 0 into `nbr`
+    where `valid` is False; its `valid`, `dist2` and the valid `nbr` rows
+    equal the plain version's bit for bit."""
+    data, valid = bins
+    if data.device.type == "cpu":
+        return knn_select_plain(bins, origin, cell_size, k, radius_cells)
+    if data.device.type != "cuda":
+        raise ValueError(f"knn_select_dense: no kernel for {data.device}")
+    B, H, W, C, D = data.shape
+    for name, t, dtype, shape in (("data", data, torch.float32,
+                                   (B, H, W, C, D)),
+                                  ("valid", valid, torch.bool, (B, H, W, C))):
+        if t.device != data.device or t.dtype != dtype or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"knn_select_dense: {name} must be a contiguous {dtype} "
+                f"{shape} tensor on {data.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= k <= MAX_NEIGHBORS or D < 2 or radius_cells < 0:
+        raise ValueError(f"knn_select_dense: k={k} outside [1, "
+                         f"{MAX_NEIGHBORS}], D={D} < 2 or r < 0")
+    if data.numel() >= 2 ** 31 or B * H * W * k * D >= 2 ** 31:
+        raise ValueError("knn_select_dense: tensors too large for int32 "
+                         "indices")
+    dev = data.device
+    nbr = torch.empty((B, H, W, k, D), dtype=torch.float32, device=dev)
+    ok = torch.empty((B, H, W, k), dtype=torch.bool, device=dev)
+    d2 = torch.empty((B, H, W, k), dtype=torch.float32, device=dev)
+    if ok.numel():
+        err = _cuda.library().dcf_knn_select(
+            data.data_ptr(), valid.data_ptr(), nbr.data_ptr(), ok.data_ptr(),
+            d2.data_ptr(), B, H, W, C, D, k, radius_cells,
+            ctypes.c_float(origin[0]), ctypes.c_float(origin[1]),
+            ctypes.c_float(cell_size),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _cuda.check(err, "knn_select_dense")
+        knn_select_dense.launches += 1
+    return nbr, ok, d2
+
+
+knn_select_dense.launches = 0

@@ -5,7 +5,9 @@ The port's modules carry the flax module names, so a flax path
 `a/b/Conv_0/kernel` is the torch parameter `a.b.Conv_0.weight`. Leaves
 convert by module type: a conv kernel HWIO -> OIHW, a Dense kernel
 [in, out] -> Linear weight [out, in], GroupNorm scale -> weight; raw
-parameters (`geo_kernel`, ...) keep their flax layout.
+parameters (`geo_kernel`, ...) keep their flax layout. The int8 mode's
+"quant" collection maps the same way: `quant/a/b/in_amax` is the buffer
+`a.b.in_amax` of a `ConvNorm`.
 """
 
 from __future__ import annotations
@@ -100,16 +102,58 @@ def flax_tree(module: nn.Module, values: Optional[Dict] = None) -> Dict:
 
 
 def from_flax(params, cfg: Config, device="cuda") -> ContFuseDetector:
-    """The JAX package's parameters (`model.init(...)`'s tree, as numpy or
-    jax arrays) loaded into a new `ContFuseDetector` on `device`."""
+    """The JAX package's variables loaded into a new `ContFuseDetector` on
+    `device`: `model.init(...)`'s parameter tree (numpy or jax arrays),
+    bare or as {"params": tree}, or {"params": tree, "quant": tree} with
+    the calibration of the int8 mode (`dcf.quant.calibrate`)."""
     device = resolve_device(device)
     model = load_flax(ContFuseDetector(cfg), params.get("params", params))
+    if "params" in params and "quant" in params:
+        quant_from_flax(model, params)
     return model.to(device).eval()
 
 
 def to_flax(model: ContFuseDetector) -> Dict:
     """The detector's parameters as {"params": flax-layout tree}."""
     return {"params": flax_tree(model)}
+
+
+def _amax_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {n: b for n, b in model.named_buffers() if n.endswith("in_amax")}
+
+
+def quant_from_flax(model: nn.Module, qvars: Dict) -> nn.Module:
+    """Copy the JAX package's "quant" collection ({"quant": tree} or the
+    tree) into the `in_amax` buffers of `model`'s ConvNorms. Raises unless
+    the tree names exactly those buffers."""
+    tree = qvars.get("quant", qvars)
+    own = _amax_buffers(model)
+    seen = set()
+    for path, value in _flat(tree).items():
+        name = ".".join(path)
+        if name not in own:
+            raise KeyError(f"quant_from_flax: no buffer for {'/'.join(path)}")
+        with torch.no_grad():
+            own[name].copy_(torch.from_numpy(
+                np.array(value, dtype=np.float32)).reshape(()))
+        seen.add(name)
+    missing = set(own) - seen
+    if missing:
+        raise KeyError(f"quant_from_flax: not in the tree: {sorted(missing)}")
+    return model
+
+
+def quant_to_flax(model: nn.Module) -> Dict:
+    """The `in_amax` buffers of `model`'s ConvNorms as {"quant": tree}, the
+    layout of the JAX package's "quant" collection (float32 scalars)."""
+    tree: Dict = {}
+    for name, buf in _amax_buffers(model).items():
+        parts = name.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = buf.detach().cpu().numpy().copy()
+    return {"quant": tree}
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):

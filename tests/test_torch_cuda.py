@@ -12,6 +12,11 @@ Tolerances: the fusion kernel repeats its plain version's operations in
 the same order and the library is built without FMA contraction, so it
 must agree exactly. The clip kernel does too, except that CUDA's cosf /
 sinf and PyTorch's may differ in the last ulp: atol 1e-4 x (1 + area).
+The KNN kernel repeats its plain version's selection in the same scan
+order: valid and dist2 exactly, nbr exactly where valid, with exact
+distance ties. The int8 micro-benchmark kernel is exact (integer sums);
+its bf16 twin is within `int8_mma.selection_mma_tolerance`. The int8
+conv's unfold + `torch._int_mm` equals the float64 plain conv exactly.
 Served end to end in float32 (TF32 off), the card and the CPU differ by
 cuDNN's and the CPU's summation orders: chip_smoke.py's small-input
 reference, at the tolerances of tests/test_oracle_e2e.py.
@@ -33,8 +38,9 @@ import chip_smoke
 from dcf_torch.config import multi_scale_config
 from dcf_torch.data.preprocess import frame_to_example
 from dcf_torch.data.synthetic import make_varied_frame
-from dcf_torch.ops import clip, fusion
+from dcf_torch.ops import clip, fusion, int8, int8_mma, knn
 from dcf_torch.ops.knn import bin_points_dense
+from dcf_torch.tools import bench_int8_mma
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +182,66 @@ def test_tiny_serving_on_card_matches_cpu(card):
     """tiny_config in float32, card (kernels, 4 + 1 launches) against CPU
     (plain versions): chip_smoke.py's small-input reference."""
     chip_smoke.check_tiny_reference()
+
+
+@pytest.mark.parametrize("k,lattice,r", [(1, False, 1), (4, False, 1),
+                                         (4, True, 1), (8, True, 2),
+                                         (3, True, 0)])
+def test_knn_kernel_matches_plain(card, k, lattice, r):
+    data, valid = _fusion_args(20 + k, card, k=k, lattice=lattice)[:2]
+    bins = knn.DenseBins(data, valid)
+    before = knn.knn_select_dense.launches
+    nbr, ok, d2 = knn.knn_select_dense(bins, (0.0, 0.0), 1.0, k, r)
+    assert knn.knn_select_dense.launches == before + 1
+    pn, pv, pd = knn.knn_select_plain(bins, (0.0, 0.0), 1.0, k, r)
+    assert torch.equal(ok, pv) and torch.equal(d2, pd)
+    assert torch.equal(nbr[pv], pn[pv]) and not nbr[~pv].any()
+    if lattice and k > 1:
+        assert ((d2[..., 1:] == d2[..., :-1]) & pv[..., 1:]).sum() > 50
+
+
+def test_knn_kernel_main_path_shapes(card):
+    cfg = multi_scale_config()
+    ex = frame_to_example(make_varied_frame(seed=5), cfg)
+    rng = np.random.default_rng(0)
+    for _, args in chip_smoke.fusion_inputs(cfg, ex, card, rng):
+        data, valid, *_, origin, cell, k, r = args
+        bins = knn.DenseBins(data, valid)
+        got = knn.knn_select_dense(bins, origin, cell, k, r)
+        want = knn.knn_select_plain(bins, origin, cell, k, r)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert torch.equal(got[0][want[1]], want[0][want[1]])
+        assert got[1].any()
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_selection_mma_kernels_match_plain(card, kind):
+    """Both micro-benchmark kernels, on the benchmark's operands and on
+    denser ones, one block and two per SM."""
+    before = (int8_mma.selection_mma_int8.launches,
+              int8_mma.selection_mma_bf16.launches)
+    for density in (1 / int8_mma.CAPR, 0.05):
+        slab, oh = bench_int8_mma.make_inputs(card, 3, density)[kind]
+        for blocks in (1, int8_mma.default_blocks(card)):
+            bench_int8_mma.check(kind, slab, oh, blocks)
+    after = (int8_mma.selection_mma_int8.launches,
+             int8_mma.selection_mma_bf16.launches)
+    assert [a - b for a, b in zip(after, before)] == (
+        [4, 0] if kind == "int8" else [0, 4])
+
+
+# the last two: 30 and 48 rows, 32 and 64 columns, which cuBLASLt's int8
+# product refuses unpadded
+@pytest.mark.parametrize("B,H,W,C,O,k,s", [
+    (1, 3, 4, 5, 3, 3, 1), (2, 9, 11, 8, 16, 3, 2), (1, 88, 100, 84, 64, 2, 1),
+    (2, 7, 6, 12, 8, 1, 2), (1, 24, 78, 64, 64, 3, 1),
+    (1, 6, 20, 24, 32, 1, 2), (1, 4, 12, 8, 64, 1, 1)])
+def test_int8_conv_on_card_matches_plain(card, B, H, W, C, O, k, s):
+    g = torch.Generator().manual_seed(B * H + C)
+    xq = torch.randint(-127, 128, (B, H, W, C), generator=g).to(torch.int8)
+    wq = torch.randint(-127, 128, (O, C, k, k), generator=g).to(torch.int8)
+    xq, wq = xq.to(card), wq.to(card)
+    before = int8.int8_conv2d.launches
+    got = int8.int8_conv2d(xq, wq, s)
+    assert int8.int8_conv2d.launches == before + 1
+    assert torch.equal(got, int8.int8_conv2d_plain(xq, wq, s))

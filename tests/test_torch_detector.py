@@ -140,6 +140,37 @@ def test_init_params_seeded():
     assert torch.all(sa["fpn.ConvNorm_0.GroupNorm_0.weight"] == 1)
 
 
+def test_init_params_draws_the_reference_distribution(fusion_ref):
+    """`init_params` and flax's `model.init` draw from one distribution
+    with different random streams (a torch.Generator against threefry).
+    Same leaves, shapes and dtypes; every non-kernel leaf equal; each
+    kernel leaf's std within 10% of the reference's, or within 4 standard
+    errors of the ratio of two sample stds (1 / sqrt(n) for n values)
+    where a leaf is too small for 10%; and over all kernels, the values
+    scaled by sqrt(fan_in) (lecun-normal: unit variance) within 2%."""
+    want = dict(jax.tree_util.tree_leaves_with_path(fusion_ref["params"]))
+    model = init_params(fusion_ref["cfg"], torch.Generator().manual_seed(0),
+                        device="cpu")
+    got = dict(jax.tree_util.tree_leaves_with_path(to_flax(model)))
+    assert got.keys() == want.keys()
+    sums = {"got": 0.0, "want": 0.0}
+    n_kernel = 0
+    for path, w in want.items():
+        w, g = np.asarray(w), got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        if jax.tree_util.keystr(path).endswith("kernel']"):
+            ratio = g.std() / w.std()
+            assert abs(ratio - 1) <= max(0.1, 4 / np.sqrt(w.size)), path
+            fan_in = w[..., 0].size     # all axes but the last (flax)
+            sums["got"] += float((g.astype(np.float64) ** 2).sum()) * fan_in
+            sums["want"] += float((w.astype(np.float64) ** 2).sum()) * fan_in
+            n_kernel += w.size
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=str(path))
+    rms = {k: np.sqrt(v / n_kernel) for k, v in sums.items()}
+    assert abs(rms["got"] - 1) <= 0.02 and abs(rms["want"] - 1) <= 0.02
+
+
 def test_entry_points_need_cuda_or_cpu():
     """Entry points default to the card and never fall back silently."""
     if torch.cuda.is_available():
