@@ -39,9 +39,10 @@ _F = ctypes.c_float
 # C signatures: name -> argument types (all return int, a cudaError_t)
 _SIGNATURES = {
     # data, valid, z1, wgt, bg, out, stash_sel, stash_geo (both null when
-    # serving), B, H, W, C, P, hid, K, r, origin_x, origin_y, cell, stream
+    # serving), B, H, W, C, P, hid, K, r, lanes, tile_h, tile_w,
+    # origin_x, origin_y, cell, stream
     "dcf_fusion_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _F, _F, _F, _P),
+                       _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # sel, geo, z1, wgt, bg, dacc, dacc row stride, dz1, dwgt, dbg,
     # B, H, W, K, P, hid, stream
     "dcf_fusion_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
@@ -140,6 +141,12 @@ def library() -> ctypes.CDLL:
             lib.dcf_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def sm_count(device) -> int:
+    """The number of streaming multiprocessors of a CUDA device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

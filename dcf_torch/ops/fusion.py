@@ -27,7 +27,7 @@ the JAX package's CPU twin, gives 0.5 there).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +35,22 @@ from dcf_torch.ops import _cuda
 from dcf_torch.ops.knn import DenseBins, cell_centers, knn_select_plain
 
 MAX_NEIGHBORS = 8      # the kernel's insertion list is unrolled up to this
+# lanes per pixel -> (tile rows, tile columns) of the forward kernel's
+# 256-thread blocks
+FWD_TILES = {2: (8, 16), 4: (8, 8), 8: (4, 8)}
+
+
+def fusion_launch_shape(B: int, H: int, W: int, sms: int
+                        ) -> Tuple[int, int, int]:
+    """(lanes per pixel, tile rows, tile columns) for the forward kernel
+    on a card with `sms` multiprocessors: the fewest lanes whose tiles
+    give at least two blocks per multiprocessor, else 8 lanes. Fewer
+    lanes mean larger tiles (less halo per pixel); more lanes, more
+    blocks and fewer candidates per thread for the coarse scales."""
+    for lanes, (th, tw) in FWD_TILES.items():
+        if B * -(-H // th) * -(-W // tw) >= 2 * sms:
+            return (lanes, th, tw)
+    return (8,) + FWD_TILES[8]
 
 
 def quantize_payload_xyz(data: torch.Tensor, origin: Tuple[float, float],
@@ -196,9 +212,10 @@ def _check(fn: str, tensors) -> None:
 
 
 def _forward(data, valid, z1, wgt, bg, origin, cell_size, k, radius_cells,
-             stash: bool):
+             stash: bool, lanes: Optional[int] = None):
     """The forward on the tensors' device: the plain version on the CPU,
-    the kernel on CUDA (counted in `fused_fusion.launches`)."""
+    the kernel on CUDA (counted in `fused_fusion.launches`), with `lanes`
+    per pixel (default: `fusion_launch_shape`'s choice)."""
     if data.device.type == "cpu":
         return fused_fusion_plain(data, valid, z1, wgt, bg, origin,
                                   cell_size, k, radius_cells, stash=stash)
@@ -214,6 +231,9 @@ def _forward(data, valid, z1, wgt, bg, origin, cell_size, k, radius_cells,
         ("bg", bg, torch.float32, (hid,))))
     if not 1 <= k <= MAX_NEIGHBORS:
         raise ValueError(f"fused_fusion: k={k} outside [1, {MAX_NEIGHBORS}]")
+    if hid % 4 or hid > 256 or C > 32:
+        raise ValueError(f"fused_fusion: the kernel takes hid a multiple of "
+                         f"4 up to 256 and C up to 32, got hid={hid}, C={C}")
     if B * H * W * C >= 2 ** 31 or B * P * hid >= 2 ** 31:
         raise ValueError("fused_fusion: tensors too large for int32 indices")
     dev = data.device
@@ -222,13 +242,19 @@ def _forward(data, valid, z1, wgt, bg, origin, cell_size, k, radius_cells,
     if stash:
         sel = torch.empty((B, H, W, k), dtype=torch.int32, device=dev)
         geo = torch.empty((B, H, W, k, 4), dtype=torch.float32, device=dev)
+    if lanes is None:
+        lanes, th, tw = fusion_launch_shape(B, H, W, _cuda.sm_count(dev))
+    elif lanes in FWD_TILES:
+        th, tw = FWD_TILES[lanes]
+    else:
+        raise ValueError(f"fused_fusion: lanes={lanes} not in {FWD_TILES}")
     if out.numel():
         err = _cuda.library().dcf_fusion_fwd(
             data.data_ptr(), valid.data_ptr(), z1.data_ptr(), wgt.data_ptr(),
             bg.data_ptr(), out.data_ptr(),
             sel.data_ptr() if stash else None,
             geo.data_ptr() if stash else None,
-            B, H, W, C, P, hid, k, radius_cells,
+            B, H, W, C, P, hid, k, radius_cells, lanes, th, tw,
             ctypes.c_float(origin[0]), ctypes.c_float(origin[1]),
             ctypes.c_float(cell_size),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -4,16 +4,19 @@
 Replaces the TPU kernel `scripts/bench_int8_fusion_matmul.py::_kernel`,
 which asks whether the fusion layers' one-hot selection products
 `slab [HID, CAPR] @ oh[k] [CAPR, W]` run faster in int8 than in bf16.
-One program (one CUDA block) computes
+One program computes
 
     acc = sum over rep < REPS, rr < TH, k < K of s_i @ oh[k],
     i = 1 + rep * TH * K + rr * K + k,
 
 with s_i = int8(int32(slab) * i) (wrapping modulo 256) in int8, and
-s_i = bf16(slab * i) in bf16; each product is summed in int32 (int8) or
-float32 (bf16), then added into the float32 result [HID, W]. Every
-block computes the same result; the block count sets the amount of
-work. The plain version does the same loop in float64.
+s_i = bf16(slab * i) in bf16; the TPU kernel sums each product in int32
+(int8) or float32 (bf16), then adds it into the float32 result [HID, W].
+The CUDA kernel (wgmma fed by TMA) runs one int32 or float32
+accumulator over all 128 products: exact in int8, and in bf16 within
+`selection_mma_tolerance`, the bound for that order. Every program
+computes the same result; the program count (`blocks`) sets the amount
+of work. The plain version does the same loop in float64.
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ def selection_mma_plain(slab: torch.Tensor, oh: torch.Tensor
 
 
 def default_blocks(device) -> int:
-    """Two blocks per streaming multiprocessor."""
-    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    """Two programs per streaming multiprocessor."""
+    return 2 * _cuda.sm_count(device)
 
 
 def _launch(name: str, slab: torch.Tensor, oh: torch.Tensor,
@@ -87,9 +90,10 @@ def _launch(name: str, slab: torch.Tensor, oh: torch.Tensor,
 
 def selection_mma_int8(slab: torch.Tensor, oh: torch.Tensor,
                        blocks: Optional[int] = None) -> torch.Tensor:
-    """The int8 products (int8 slab and oh): the CUDA kernel on `blocks`
-    blocks (default two per SM) for CUDA tensors, the plain version (as
-    float32) for CPU tensors. -> [HID, W] float32."""
+    """The int8 products (int8 slab and oh): the CUDA kernel running
+    `blocks` programs (default two per SM, on a persistent grid of at
+    most one CTA per SM) for CUDA tensors, the plain version (as float32)
+    for CPU tensors. -> [HID, W] float32."""
     if slab.device.type == "cpu":
         return selection_mma_plain(slab, oh).to(torch.float32)
     if slab.device.type != "cuda":
@@ -121,18 +125,27 @@ F32_UNIT_ROUNDOFF = 2.0 ** -24
 def selection_mma_tolerance(slab: torch.Tensor, oh: torch.Tensor
                             ) -> torch.Tensor:
     """Per-element bound on |float32 result - float64 plain result| for
-    the bf16 products: each element is a float32 sum of n = n_dot + 128
-    terms (the dot of each product over its n_dot nonzero oh entries,
-    then the 128 products), which errs by at most (n - 1) u sum|terms|
-    in any order with round-to-nearest adds (u = 2^-24), and by at most
-    twice that when the tensor cores truncate; the int8 sums are exact."""
-    n_dot = int(oh.to(torch.float64).sum(1).max())
+    the bf16 products.
+
+    The kernel sums each element in one float32 accumulator over all 128
+    products (for k, for 128-byte chunk of oh[k], for the 32 products
+    that share oh[k], for each 16-deep wgmma step). Its terms are
+    s_i[r, d] * oh[k][d, c], exact in float32 (a bf16 value times 0 or
+    1); the zero terms add nothing. So element (r, c) is a float32 sum of
+    n = 32 * sum_k sum_d oh[k][d, c] nonzero terms, taken in sequence.
+    Any order of a float32 sum of n terms with round-to-nearest adds errs
+    by at most (n - 1) u sum|terms| (u = 2^-24); a tensor core that
+    truncates where it aligns its addends at most doubles that. Hence
+    2 n u sum|terms|. The same n bounds any other order of the same
+    terms, the TPU kernel's (a dot per product, then 128 adds) included.
+    The int8 sums are exact."""
+    ohd = oh.to(torch.float64)
+    n = (REPS * TH) * ohd.sum(dim=(0, 1))                    # [W]
     absum = torch.zeros((slab.shape[0], oh.shape[2]), dtype=torch.float64,
                         device=slab.device)
     i = 1
     for _ in range(REPS * TH):
         for k in range(oh.shape[0]):
-            absum += scaled_slab(slab, i).to(torch.float64).abs() @ \
-                oh[k].to(torch.float64)
+            absum += scaled_slab(slab, i).to(torch.float64).abs() @ ohd[k]
             i += 1
-    return 2.0 * (n_dot + PRODUCTS) * F32_UNIT_ROUNDOFF * absum
+    return 2.0 * n * F32_UNIT_ROUNDOFF * absum

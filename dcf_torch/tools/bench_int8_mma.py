@@ -3,8 +3,10 @@ the port of `scripts/bench_int8_fusion_matmul.py`.
 
     python -m dcf_torch.tools.bench_int8_mma [--blocks N] [--seed S]
 
-Runs both kernels of `dcf_torch/csrc/int8_mma.cu` on N blocks (default
-two per SM; every block computes one TPU program's [64, 400] result),
+Runs both kernels of `dcf_torch/csrc/int8_mma.cu` (wgmma fed by TMA) on
+N programs (default two per SM; every program computes one TPU
+program's [64, 400] result; a persistent grid of at most one CTA per SM
+walks over them),
 holds each to its plain version (float64 arithmetic of the same loop:
 int8 exact, bf16 within `selection_mma_tolerance`), and prints the
 card's name and power limit, each kernel's device time (a CUDA graph of
@@ -119,7 +121,7 @@ def card() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=None,
-                    help="blocks per launch (default: two per SM)")
+                    help="programs per launch (default: two per SM)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -127,7 +129,7 @@ def main(argv=None) -> int:
         return 1
     print(f"card: {card()}", flush=True)
     r = run("cuda", args.blocks, args.seed)
-    print(f"{r['blocks']} blocks, {r['ops']:.4g} operations per launch",
+    print(f"{r['blocks']} programs, {r['ops']:.4g} operations per launch",
           flush=True)
     for kind, unit in (("bf16", "TF/s"), ("int8", "TOP/s")):
         k = r[kind]

@@ -10,12 +10,13 @@ so it also runs on a machine that has only PyTorch:
 
 Tolerances: the fusion kernel repeats its plain version's operations in
 the same order and the library is built without FMA contraction, so it
-must agree exactly. The clip kernel does too, except that CUDA's cosf /
+must agree exactly, at every lane count and with the stash. The clip kernel does too, except that CUDA's cosf /
 sinf and PyTorch's may differ in the last ulp: atol 1e-4 x (1 + area).
 The KNN kernel repeats its plain version's selection in the same scan
 order: valid and dist2 exactly, nbr exactly where valid, with exact
 distance ties. The int8 micro-benchmark kernel is exact (integer sums);
-its bf16 twin is within `int8_mma.selection_mma_tolerance`. The int8
+its bf16 twin is within `int8_mma.selection_mma_tolerance`, the bound
+for its summation order. The int8
 conv's unfold + `torch._int_mm` equals the float64 plain conv exactly.
 Served end to end in float32 (TF32 off), the card and the CPU differ by
 cuDNN's and the CPU's summation orders: chip_smoke.py's small-input
@@ -77,15 +78,41 @@ def _fusion_args(seed, device, B=2, H=24, W=40, cap=8, k=4, hid=64, P=3000,
             t(rng.normal(size=hid) * .1), (0.0, 0.0), 1.0, k, 1)
 
 
-@pytest.mark.parametrize("k,lattice", [(1, False), (4, False), (4, True),
-                                       (8, True)])
-def test_fusion_kernel_matches_plain(card, k, lattice):
-    args = _fusion_args(k, card, k=k, lattice=lattice)
+# every K, r = 1 and 2, grids that no tile divides (tiles are 8x16, 8x8
+# and 4x8), random points and the quarter-cell lattice's exact ties
+@pytest.mark.parametrize("k,lattice,H,W,r", [
+    (1, False, 24, 40, 1), (2, True, 7, 9, 1), (3, False, 44, 50, 2),
+    (4, False, 24, 40, 1), (4, True, 45, 51, 1), (5, True, 7, 9, 2),
+    (6, False, 45, 51, 2), (7, True, 44, 50, 1), (8, True, 45, 51, 2)])
+def test_fusion_kernel_matches_plain(card, k, lattice, H, W, r):
+    """Bit-equal to the plain version at every lane count, with and
+    without the stash."""
+    args = list(_fusion_args(k + 10 * r, card, H=H, W=W, k=k,
+                             lattice=lattice))
+    args[8] = r
+    want, (sel, geo) = fusion.fused_fusion_plain(*args, stash=True)
+    assert want[..., -1].sum() > 0
     before = fusion.fused_fusion.launches
     got = fusion.fused_fusion(*args)
     assert fusion.fused_fusion.launches == before + 1
-    torch.testing.assert_close(got, fusion.fused_fusion_plain(*args),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for lanes in fusion.FWD_TILES:
+        got = fusion._forward(*args, stash=False, lanes=lanes)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got, (s, g) = fusion._forward(*args, stash=True, lanes=lanes)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert torch.equal(s, sel) and torch.equal(g, geo)
+    if lattice and k > 1:
+        ties = (geo[..., 1:, 3] == geo[..., :-1, 3]) & (sel[..., 1:] >= 0)
+        assert int(ties.sum()) > 0
+
+
+def test_fusion_kernel_all_invalid(card):
+    args = list(_fusion_args(0, card, H=45, W=51))
+    args[1] = torch.zeros_like(args[1])
+    for lanes in fusion.FWD_TILES:
+        got, (sel, geo) = fusion._forward(*args, stash=True, lanes=lanes)
+        assert not got.any() and (sel == -1).all() and not geo.any()
 
 
 def test_fusion_kernel_main_path_shapes(card):
@@ -217,17 +244,18 @@ def test_knn_kernel_main_path_shapes(card):
 @pytest.mark.parametrize("kind", ["int8", "bf16"])
 def test_selection_mma_kernels_match_plain(card, kind):
     """Both micro-benchmark kernels, on the benchmark's operands and on
-    denser ones, one block and two per SM."""
+    denser ones, at one program, fewer programs than SMs, two per SM
+    (the default) and one more than that (the persistent grid's tail)."""
     before = (int8_mma.selection_mma_int8.launches,
               int8_mma.selection_mma_bf16.launches)
     for density in (1 / int8_mma.CAPR, 0.05):
         slab, oh = bench_int8_mma.make_inputs(card, 3, density)[kind]
-        for blocks in (1, int8_mma.default_blocks(card)):
+        for blocks in (1, 131, 264, 265):
             bench_int8_mma.check(kind, slab, oh, blocks)
     after = (int8_mma.selection_mma_int8.launches,
              int8_mma.selection_mma_bf16.launches)
     assert [a - b for a, b in zip(after, before)] == (
-        [4, 0] if kind == "int8" else [0, 4])
+        [8, 0] if kind == "int8" else [0, 8])
 
 
 # the last two: 30 and 48 rows, 32 and 64 columns, which cuBLASLt's int8
