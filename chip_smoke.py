@@ -13,14 +13,19 @@ Phases, each printed on its own line with the seconds elapsed:
      launch shape (lanes per pixel, tile) and its ms with the stash per
      scale, the fusion backward at the same four scales (its
      stash from the kernel forward, checked equal to the plain one's
-     selections; a seeded cotangent; a tolerance that follows from the
-     length of each float32 sum), the rotated clip on 196,608 random box
-     pairs plus hard cases; max error; kernel ms (device time: 20 calls
+     selections; a seeded cotangent; two launches bit-identical, d_z1
+     bit-equal to the plain version run on the CPU, all outputs within
+     a tolerance that follows from the length of each float32 sum of
+     the plain version on the card; ms per scale beside the earlier
+     kernel's total), the rotated clip on 196,608 random box pairs plus
+     hard cases, with the count of pairs that differ from the plain
+     version at all; max error; kernel ms (device time: 20 calls
      captured in a CUDA graph, replayed between CUDA events, so the
-     host's cost per launch is out of it; the backward's kernel alone,
-     its zero-filled outputs allocated before) and plain ms (CUDA events
-     around back-to-back calls); the bound of each, from the bytes and
-     operations this run's data needs;
+     host's cost per launch is out of it; the backward's entry point
+     after the zero fill of its counts, its outputs and scratch
+     allocated before) and plain ms
+     (CUDA events around back-to-back calls); the bound of each, from
+     the bytes and operations this run's data needs;
   4. a small-input reference: `tiny_config` in float32 served on the card
      (kernels) and on the CPU (plain versions) with the same weights;
   5. a small-input training reference: one `tiny_config` float32 train
@@ -224,16 +229,24 @@ def check_fusion(cfg, example, device):
             "per_scale": per_scale}
 
 
+FUSION_BWD_EARLIER_MS = 0.1806   # the replaced kernel, four scales (H100)
+
+
 def check_fusion_bwd(cfg, example, device):
     """The backward kernel against its plain version at the four scales of
     phase 3's frame: the kernel forward's stash (also checked equal to the
-    plain forward's selections) and a seeded normal cotangent."""
+    plain forward's selections) and a seeded normal cotangent. Two
+    launches give the same bits; d_z1 equals the plain version run on the
+    CPU bit for bit (both sum each point's pairs in pair order), and all
+    three outputs are within `fusion_bwd_tolerance` of the plain version
+    on the card."""
     import torch
-    from dcf_torch.ops import _cuda, fusion as F
+    from dcf_torch.ops import fusion as F
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=device).manual_seed(0)
     tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
            "ops": 0.0, "err": 0.0, "ratio": 0.0}
+    per_scale = []
     for s, args in fusion_inputs(cfg, example, device, rng):
         data, valid, z1, wgt, bg, origin, cell, k, r = args
         out, stash = F._forward(*args, stash=True)
@@ -248,9 +261,19 @@ def check_fusion_bwd(cfg, example, device):
         dout = torch.randn((B, H, W, hid + 1), generator=gen, device=device)
         dacc = dout[..., :hid]
         got = F.fused_fusion_bwd(stash, z1, wgt, bg, dacc)
+        again = F.fused_fusion_bwd(stash, z1, wgt, bg, dacc)
         ref = F.fused_fusion_bwd_plain(stash, z1, wgt, bg, dacc)
         tols = F.fusion_bwd_tolerance(stash, z1, wgt, bg, dacc)
+        cpu = F.fused_fusion_bwd_plain(
+            tuple(t.cpu() for t in stash), z1.cpu(), wgt.cpu(), bg.cpu(),
+            dacc.cpu())
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"fusion bwd s{s}: two launches differ")
+        if not torch.equal(got[0].cpu(), cpu[0]):
+            raise RuntimeError(
+                f"fusion bwd s{s}: d_z1 differs from the CPU plain version "
+                f"at {int((got[0].cpu() != cpu[0]).sum())} elements")
         err, ratio = 0.0, 0.0
         for name, a, b, tol in zip(("d_z1", "d_wgt", "d_bg"), got, ref, tols):
             e = (a - b).abs()
@@ -261,18 +284,17 @@ def check_fusion_bwd(cfg, example, device):
                     f"{int((e > tol).sum())} elements")
             err = max(err, e.max().item())
             ratio = max(ratio, (e / tol.clamp(min=1e-30)).max().item())
-        lib = _cuda.library()
         sel, geo = stash
-        dz1, dwgt, dbg = (torch.zeros_like(t) for t in (z1, wgt, bg))
+        outs = tuple(torch.empty_like(t) for t in (z1, wgt, bg))
+        scratch, blocks = F.fusion_bwd_scratch(B, z1.shape[1], hid, device)
+        # the entry point (fill, gather, combine) after the zero fill of
+        # its counts, as the wrapper runs it; outputs and scratch
+        # allocated once
 
-        def kernel():          # the entry point alone, outputs allocated
-            _cuda.check(lib.dcf_fusion_bwd(
-                sel.data_ptr(), geo.data_ptr(), z1.data_ptr(),
-                wgt.data_ptr(), bg.data_ptr(), dacc.data_ptr(),
-                dacc.stride(2), dz1.data_ptr(), dwgt.data_ptr(),
-                dbg.data_ptr(), B, H, W, k, z1.shape[1], hid,
-                torch.cuda.current_stream().cuda_stream), "fusion_bwd")
-        ms = graph_ms(kernel)
+        def launch():
+            scratch[0].zero_()
+            F._launch_bwd(stash, z1, wgt, bg, dacc, outs, scratch, blocks)
+        ms = graph_ms(launch)
         wrapper = graph_ms(lambda: F.fused_fusion_bwd(stash, z1, wgt, bg,
                                                       dacc))
         plain = cuda_ms(lambda: F.fused_fusion_bwd_plain(stash, z1, wgt, bg,
@@ -296,11 +318,13 @@ def check_fusion_bwd(cfg, example, device):
         n_ops = 10.0 * n_sel * hid + 10.0 * n_live
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         log(f"fusion bwd s{s}: {(H, W)} px, {n_sel} pairs, {n_live} live "
-            f"(pair, channel), max|err| {err:.3g} ({ratio:.3g} of its "
-            f"bound), kernel {ms:.4f} ms (wrapper with its zero fills "
-            f"{wrapper:.4f} ms), plain {plain:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}, {n_bytes} bytes); forward {fwd:.4f} ms, with the "
-            f"stash {fwd_stash:.4f} ms")
+            f"(pair, channel), two launches bit-identical, d_z1 bit-equal "
+            f"to the CPU plain version, max|err| vs plain on the card "
+            f"{err:.3g} ({ratio:.3g} of its bound), kernel {ms:.4f} ms "
+            f"(wrapper with its allocations {wrapper:.4f} ms), plain "
+            f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes} "
+            f"bytes); forward {fwd:.4f} ms, with the stash {fwd_stash:.4f} ms")
+        per_scale.append({"stride": s, "ms": ms, "bound_ms": b_ms})
         for key, v in (("ms", ms), ("wrapper_ms", wrapper),
                        ("plain_ms", plain), ("bytes", n_bytes),
                        ("ops", n_ops)):
@@ -308,7 +332,9 @@ def check_fusion_bwd(cfg, example, device):
         tot["err"] = max(tot["err"], err)
         tot["ratio"] = max(tot["ratio"], ratio)
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
-    log(f"fusion bwd: 4 scales {tot['ms']:.4f} ms (wrapper "
+    log(f"fusion bwd: 4 scales {tot['ms']:.4f} ms (earlier kernel "
+        f"{FUSION_BWD_EARLIER_MS} ms; per scale "
+        f"{[round(p['ms'], 4) for p in per_scale]}; wrapper "
         f"{tot['wrapper_ms']:.4f} ms), plain "
         f"{tot['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| "
         f"{tot['err']:.3g} ({tot['ratio']:.3g} of its bound)")
@@ -317,7 +343,7 @@ def check_fusion_bwd(cfg, example, device):
             "replaces": "dcf/ops/pallas/fusion_kernel.py:868",
             "max_abs_err": tot["err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "per_scale": per_scale}
 
 
 # (a, b) box pairs (x, y, dx, dy, yaw) on the clip's edge cases, and the
@@ -395,6 +421,9 @@ def clip_ops(a, b) -> float:
     return n_ops + 4.0 * live.sum().item() + 2.0 * a.shape[0]
 
 
+CLIP_EARLIER_MS = 0.0326         # the replaced kernel, 196,608 pairs (H100)
+
+
 def check_clip(device):
     import torch
     from dcf_torch.ops.clip import (rotated_intersection_area_pairs,
@@ -410,21 +439,25 @@ def check_clip(device):
         raise RuntimeError(f"clip: {int(bad.sum())} pairs disagree, "
                            f"max|err| {err.max().item()}")
     check_clip_hard(got)
+    n_diff = int((got != want).sum())
     ms = graph_ms(lambda: rotated_intersection_area_pairs(a, b))
     plain = cuda_ms(lambda: rotated_intersection_area_pairs_plain(a, b), 3)
     # bytes: 2 x [N, 5] f32 in, [N] f32 out; operations: clip_ops
     n_bytes = 2 * a.numel() * 4 + got.numel() * 4
     n_ops = clip_ops(a, b)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    log(f"clip: {n} pairs, max|err| {err.max().item():.3g}, hard "
+    log(f"clip: {n} pairs, {n_diff} differ from the plain version at "
+        f"all, max|err| {err.max().item():.3g}, hard "
         f"{got[-len(CLIP_HARD):].tolist()}, "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {n_ops / n:.1f} operations per pair)")
+        f"kernel {ms:.4f} ms (earlier kernel {CLIP_EARLIER_MS} ms), plain "
+        f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {n_ops / n:.1f} "
+        f"operations per pair)")
     return {"name": "clip_pairs", "route": "cuda",
             "source": "dcf_torch/csrc/clip.cu",
             "replaces": "dcf/ops/pallas/clip_kernel.py:42",
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "pairs_differing": n_diff}
 
 
 def check_tiny_reference():

@@ -44,9 +44,10 @@ _SIGNATURES = {
     "dcf_fusion_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # sel, geo, z1, wgt, bg, dacc, dacc row stride, dz1, dwgt, dbg,
-    # B, H, W, K, P, hid, stream
-    "dcf_fusion_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _P),
+    # scratch (cnt, lists, feats, partials), B, H, W, K, P, hid, blocks,
+    # stream
+    "dcf_fusion_bwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # boxes_a, boxes_b, out, n, stream
     "dcf_clip_pairs": (_P, _P, _P, _I, _P),
     # data, valid, nbr, ok, dist2, B, H, W, C, D, K, r, origin_x,
@@ -141,6 +142,40 @@ def library() -> ctypes.CDLL:
             lib.dcf_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def insert_at(src: str, anchor: str, text: str, after: bool = True) -> str:
+    """`src` with `text` inserted after (or before) `anchor`, which must
+    occur exactly once: the edits that tools make to a copy of a source."""
+    if src.count(anchor) != 1:
+        raise RuntimeError(f"anchor not found exactly once: {anchor!r}")
+    return src.replace(anchor, anchor + text if after else text + anchor)
+
+
+def build_copy(source: str, name: str, transform,
+               signatures: Optional[dict] = None) -> ctypes.CDLL:
+    """Build `transform(text of csrc/<source>)` alone into
+    `BUILD_DIR/lib<name>.so` and load it, with the C signatures of the
+    library's entry points that it defines and `signatures` (name ->
+    argument types, returning int) set: a variant of one kernel beside
+    the library, for tools that stamp or time it."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = os.path.join(BUILD_DIR, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    with open(os.path.join(CSRC, source)) as f:
+        text = transform(f.read())
+    with open(cu, "w") as f:
+        f.write(text)
+    flags = [f for f in COMPILE_FLAGS if f != "-c"]
+    subprocess.run([_nvcc(), *flags, "-shared", "-o", so, cu], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    for fn_name, argtypes in {**_SIGNATURES, **(signatures or {})}.items():
+        if hasattr(lib, fn_name):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def sm_count(device) -> int:

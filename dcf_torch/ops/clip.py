@@ -5,7 +5,7 @@ Replaces the TPU kernel `dcf/ops/pallas/clip_kernel.py::_clip_kernel`.
 The plain version is `dcf_torch.geometry.boxes.rotated_intersection_area`
 (a sort-free Sutherland-Hodgman clip mirroring the reference op for op);
 the kernel (`dcf_torch/csrc/clip.cu`) runs the same operations per pair
-with the vertex buffers in registers.
+on the live vertices only, and agrees with it bit for bit on the card.
 """
 
 from __future__ import annotations

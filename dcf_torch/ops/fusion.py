@@ -177,7 +177,9 @@ def fusion_bwd_tolerance(stash: Stash, z1: torch.Tensor, wgt: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-element bounds on the difference of two evaluations of the
     fusion backward's (d_z1, d_wgt, d_bg) that sum in different orders
-    (the kernel's atomics against the plain version). Each element is a
+    (the kernel's per-block partials against the plain version's matmul,
+    or the plain version on the card, whose index_add_ sums with atomics,
+    against the kernel). Each element is a
     float32 sum of n products (d_z1: the pairs that select its point, at
     most (2r+1)^2; d_wgt / d_bg: every live pair of its channel); any
     summation order errs by at most (n - 1) u sum|terms| (u = 2^-24), and
@@ -263,13 +265,50 @@ def _forward(data, valid, z1, wgt, bg, origin, cell_size, k, radius_cells,
     return (out, (sel, geo)) if stash else out
 
 
+BWD_BUCKET = 32   # pairs per point bucket of the backward kernel (kCap)
+
+
+def fusion_bwd_scratch(B: int, P: int, hid: int, device):
+    """The backward kernel's scratch: (bucket counts, zeroed; buckets of
+    pair indices and of their features; the blocks' d_wgt / d_bg
+    partials) and the gather's grid (one block per multiprocessor). The
+    kernel needs the counts zero on entry."""
+    blocks = _cuda.sm_count(device)
+    return (torch.zeros((B * P,), dtype=torch.int32, device=device),
+            torch.empty((B * P * BWD_BUCKET,), dtype=torch.int32,
+                        device=device),
+            torch.empty((B * P * BWD_BUCKET, 4), dtype=torch.float32,
+                        device=device),
+            torch.empty((hid * 5 * blocks,), dtype=torch.float32,
+                        device=device)), blocks
+
+
+def _launch_bwd(stash: Stash, z1, wgt, bg, dacc, out, scratch, blocks,
+                lib=None):
+    """Launch the backward kernel (fill, gather, combine) of `lib` (the
+    kernel library by default) on the current stream: d_z1, d_wgt, d_bg
+    into `out`, which it writes whole."""
+    sel, geo = stash
+    B, H, W, K = sel.shape
+    P, hid = z1.shape[1:]
+    err = (lib or _cuda.library()).dcf_fusion_bwd(
+        sel.data_ptr(), geo.data_ptr(), z1.data_ptr(), wgt.data_ptr(),
+        bg.data_ptr(), dacc.data_ptr(), dacc.stride(2),
+        *(t.data_ptr() for t in out), *(t.data_ptr() for t in scratch),
+        B, H, W, K, P, hid, blocks,
+        torch.cuda.current_stream(z1.device).cuda_stream)
+    _cuda.check(err, "fused_fusion_bwd")
+
+
 def fused_fusion_bwd(stash: Stash, z1: torch.Tensor, wgt: torch.Tensor,
                      bg: torch.Tensor, dacc: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fusion backward: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors (same arguments as `fused_fusion_bwd_plain`).
     `dacc` may be the [..., :hid] view of a contiguous [..., hid + 1]
-    cotangent: the kernel reads it with that row stride."""
+    cotangent: the kernel reads it with that row stride. The kernel is
+    deterministic, and its d_z1 equals the plain version's on the CPU
+    bit for bit (both sum each point's pairs in pair order)."""
     if z1.device.type == "cpu":
         return fused_fusion_bwd_plain(stash, z1, wgt, bg, dacc)
     if z1.device.type != "cuda":
@@ -291,21 +330,21 @@ def fused_fusion_bwd(stash: Stash, z1: torch.Tensor, wgt: torch.Tensor,
             f"fused_fusion_bwd: dacc must be a float32 {(B, H, W, hid)} "
             f"tensor on {z1.device} with contiguous rows, got {dacc.dtype} "
             f"{tuple(dacc.shape)} strides {dacc.stride()} on {dacc.device}")
-    if B * H * W * ld >= 2 ** 31 or B * P * hid >= 2 ** 31 or hid > 256:
+    if B * H * W * max(ld, K) >= 2 ** 31 or B * P * max(hid, BWD_BUCKET) \
+            >= 2 ** 31 or hid > 256:
         raise ValueError("fused_fusion_bwd: tensors too large for the kernel")
     dev = z1.device
-    dz1 = torch.zeros((B, P, hid), dtype=torch.float32, device=dev)
-    dwgt = torch.zeros((hid, 4), dtype=torch.float32, device=dev)
-    dbg = torch.zeros((hid,), dtype=torch.float32, device=dev)
-    if sel.numel():
-        err = _cuda.library().dcf_fusion_bwd(
-            sel.data_ptr(), geo.data_ptr(), z1.data_ptr(), wgt.data_ptr(),
-            bg.data_ptr(), dacc.data_ptr(), ld, dz1.data_ptr(),
-            dwgt.data_ptr(), dbg.data_ptr(), B, H, W, K, P, hid,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _cuda.check(err, "fused_fusion_bwd")
-        fused_fusion_bwd.launches += 1
-    return dz1, dwgt, dbg
+    if not sel.numel():
+        return (torch.zeros((B, P, hid), dtype=torch.float32, device=dev),
+                torch.zeros((hid, 4), dtype=torch.float32, device=dev),
+                torch.zeros((hid,), dtype=torch.float32, device=dev))
+    out = (torch.empty((B, P, hid), dtype=torch.float32, device=dev),
+           torch.empty((hid, 4), dtype=torch.float32, device=dev),
+           torch.empty((hid,), dtype=torch.float32, device=dev))
+    scratch, blocks = fusion_bwd_scratch(B, P, hid, dev)
+    _launch_bwd(stash, z1, wgt, bg, dacc, out, scratch, blocks)
+    fused_fusion_bwd.launches += 1
+    return out
 
 
 fused_fusion_bwd.launches = 0

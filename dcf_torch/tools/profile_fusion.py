@@ -18,8 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -45,20 +43,15 @@ _END = ("  if (bulk) {   // the stage must outlive the copies' reads\n")
 def stamped_source(src: str) -> str:
     """fusion_fwd.cu with the phase stamps and a reader of them."""
     for anchor, stamp in _STAMPS:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"profile_fusion: anchor not found once: "
-                               f"{anchor!r}")
-        src = src.replace(anchor, anchor + stamp)
-    if src.count(_END) != 1:
-        raise RuntimeError("profile_fusion: end anchor not found once")
-    src = src.replace(_END, (
+        src = _cuda.insert_at(src, anchor, stamp)
+    src = _cuda.insert_at(src, _END, (
         "  __syncthreads();\n  tt[4] = clock64();\n"
         "  if (tid == 0) {\n"
         "    const int bl = (blockIdx.z * gridDim.y + blockIdx.y) * "
         "gridDim.x + blockIdx.x;\n"
         "    if (bl < kStampBlocks)\n"
         "      for (int q = 0; q < 4; ++q) "
-        "g_stamps[bl * 4 + q] = tt[q + 1] - tt[q];\n  }\n") + _END)
+        "g_stamps[bl * 4 + q] = tt[q + 1] - tt[q];\n  }\n"), after=False)
     src = src.replace("namespace {\n", (
         "constexpr int kStampBlocks = 1 << 16;\n"
         "__device__ long long g_stamps[kStampBlocks * 4];\n"
@@ -69,20 +62,9 @@ def stamped_source(src: str) -> str:
 
 
 def build_stamped() -> ctypes.CDLL:
-    os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_cuda.BUILD_DIR, "fusion_fwd_stamped.cu")
-    so = os.path.join(_cuda.BUILD_DIR, "libfusion_fwd_stamped.so")
-    with open(os.path.join(_cuda.CSRC, "fusion_fwd.cu")) as f:
-        src = stamped_source(f.read())
-    with open(cu, "w") as f:
-        f.write(src)
-    flags = [f for f in _cuda.COMPILE_FLAGS if f != "-c"]
-    subprocess.run([_cuda._nvcc(), *flags, "-shared", "-o", so, cu],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(so)
-    lib.dcf_fusion_fwd.argtypes = list(_cuda._SIGNATURES["dcf_fusion_fwd"])
-    lib.dcf_fusion_fwd.restype = ctypes.c_int
-    return lib
+    return _cuda.build_copy(
+        "fusion_fwd.cu", "fusion_fwd_stamped", stamped_source,
+        {"dcf_fusion_stamps": (ctypes.c_void_p, ctypes.c_int)})
 
 
 def _launch(lib, args, lanes: int, out) -> None:

@@ -9,7 +9,9 @@ of NAME (default: selection_mma, fusion_fwd) the count of each opcode
 family that shows how it was compiled: the tensor-core instructions
 (HGMMA, IGMMA, HMMA, IMMA), TMA (UTMALDG, UBLKCP), mbarrier waits
 (SYNCS), register reallocation (USETMAXREG), local-memory spills (STL,
-LDL), and one example line of each.
+LDL), atomics (ATOM: ATOMG / ATOMS, RED: reductions to memory; REDUX,
+a warp's reduction in registers, also counts there), and one example
+line of each.
 """
 
 from __future__ import annotations
@@ -23,19 +25,33 @@ import sys
 from dcf_torch.ops import _cuda
 
 FAMILIES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UBLKCP", "SYNCS",
-            "USETMAXREG", "WARPGROUP", "STL", "LDL")
+            "USETMAXREG", "WARPGROUP", "STL", "LDL", "ATOM", "RED")
 _OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def kernels_sass(path=None):
+    """(mangled name, SASS) of each kernel in a built library: the kernel
+    library (built first if needed) by default."""
+    if path is None:
+        _cuda.library()
+        path = _cuda.LIB_PATH
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], check=True,
+                          capture_output=True, text=True).stdout
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        yield block.split("\n", 1)[0].strip(), block
+
+
+def opcodes(block: str) -> collections.Counter:
+    """Instructions of one kernel's SASS by opcode (modifiers dropped)."""
+    return collections.Counter(m.group(1).split(".")[0]
+                               for m in _OP.finditer(block))
 
 
 def summary(names=("selection_mma", "fusion_fwd")):
     """{kernel: ({family: count}, {family: first line})}."""
-    _cuda.library()
-    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _cuda.LIB_PATH], check=True,
-                          capture_output=True, text=True).stdout
     out = {}
-    for block in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = block.split("\n", 1)[0].strip()
+    for name, block in kernels_sass():
         if not any(n in name for n in names):
             continue
         counts, first = collections.Counter(), {}
