@@ -46,9 +46,11 @@ Phases, each printed on its own line with the seconds elapsed:
      peak memory;
   8. KNN selection: the KNN kernel against its plain version at the four
      scales of phase 3's frame and on a quarter-cell lattice with exact
-     ties (valid and dist2 bit-equal, nbr bit-equal where valid); kernel,
-     plain and bound ms; then the standalone KNN-selection path
-     (`knn_select_dense` at the four scales) with its launches counted;
+     ties (valid and dist2 bit-equal, nbr bit-equal where valid and 0
+     elsewhere); per case its launch shape (lanes per pixel, tile),
+     kernel, plain and bound ms, and the replaced kernel's ms in the log;
+     then the standalone KNN-selection path (`knn_select_dense` at the
+     four scales) with its launches counted;
   9. the int8 micro-benchmark (`dcf_torch.tools.bench_int8_mma.run`):
      both kernels of `int8_mma.cu` (wgmma fed by TMA) against their
      plain version (int8 exact, bf16 within its float32 bound), times,
@@ -775,39 +777,77 @@ def knn_lattice_bins(device, H=352, W=400, P=200000, C=8):
                             (0.0, 0.0), 1.0, (H, W), C)
 
 
-def check_knn(cfg, example, device):
-    """The KNN kernel against its plain version: the four scales of phase
-    3's frame and a tie lattice; bit-equal valid / dist2, and nbr where
-    valid."""
-    import torch
-    from dcf_torch.ops.knn import DenseBins, knn_select_dense, \
-        knn_select_plain
+# the replaced thread-per-pixel KNN kernel, per case (H100, 700 W)
+KNN_EARLIER_MS = {"s2": 0.0347, "s4": 0.0170, "s8": 0.0154, "s16": 0.0192,
+                  "lattice": 0.0458}
+
+
+def knn_cases(cfg, example, device):
+    """(name, bins, origin, cell) of the KNN kernel's checks: the four
+    scales of phase 3's frame, then the tie lattice."""
+    from dcf_torch.ops.knn import DenseBins
     rng = np.random.default_rng(0)
-    k, r = cfg.fusion.num_neighbors, cfg.fusion.search_radius_cells
     cases = [(f"s{s}", DenseBins(args[0], args[1]), args[5], args[6])
              for s, args in fusion_inputs(cfg, example, device, rng)]
     cases.append(("lattice", knn_lattice_bins(device), (0.0, 0.0), 1.0))
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    for name, bins, origin, cell in cases:
+    return cases
+
+
+def knn_agree(got, want):
+    """(whether a KNN result equals the plain version's: ok and dist2 bit
+    for bit, nbr where valid and 0 elsewhere; the max |error| of dist2 and
+    nbr where both are valid)."""
+    import torch
+    v = want[1]
+    equal = (torch.equal(got[1], v) and torch.equal(got[2], want[2])
+             and torch.equal(got[0][v], want[0][v])
+             and not bool(got[0][~v].any()))
+    both = v & got[1]
+    err = 0.0
+    for g, w in ((got[2][both], want[2][both]),
+                 (got[0][both], want[0][both])):
+        if g.numel():
+            err = max(err, (g - w).abs().max().item())
+    return equal, err
+
+
+def check_knn(cfg, example, device):
+    """The KNN kernel against its plain version: the four scales of phase
+    3's frame and a tie lattice; bit-equal valid / dist2, nbr where valid
+    and 0 elsewhere; per case the launch shape, kernel, plain and bound
+    ms (the replaced kernel's ms beside them in the log)."""
+    from dcf_torch.ops import _cuda
+    from dcf_torch.ops.knn import (knn_launch_shape, knn_select_dense,
+                                   knn_select_plain)
+    k, r = cfg.fusion.num_neighbors, cfg.fusion.search_radius_cells
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "err": 0.0}
+    per_case = []
+    for name, bins, origin, cell in knn_cases(cfg, example, device):
         got = knn_select_dense(bins, origin, cell, k, r)
         want = knn_select_plain(bins, origin, cell, k, r)
-        torch.cuda.synchronize()
-        v = want[1]
-        if not (torch.equal(got[1], v) and torch.equal(got[2], want[2])
-                and torch.equal(got[0][v], want[0][v])):
+        equal, err = knn_agree(got, want)
+        if not equal:
             raise RuntimeError(f"knn {name}: kernel and plain version "
-                               f"disagree")
-        d2 = want[2]
+                               f"disagree, max|err| {err}")
+        v, d2 = want[1], want[2]
         ties = int(((d2[..., 1:] == d2[..., :-1]) & v[..., 1:]).sum())
+        B, H, W, C, D = bins.data.shape
+        lanes, th, tw = knn_launch_shape(B, H, W, C, D, k, r,
+                                         _cuda.sm_count(device))
         ms = graph_ms(lambda: knn_select_dense(bins, origin, cell, k, r))
         plain = cuda_ms(lambda: knn_select_plain(bins, origin, cell, k, r),
                         3)
         n_bytes, n_ops = knn_bound(bins.data, bins.valid, k, r)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        log(f"knn {name}: {tuple(bins.data.shape[1:3])} px, {int(v.sum())} "
-            f"neighbours, {ties} equal-distance neighbours, bit-equal; "
-            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}, {n_bytes} bytes)")
+        log(f"knn {name}: {(H, W)} px, {lanes} lanes per pixel, tiles of "
+            f"{th}x{tw} ({B * -(-H // th) * -(-W // tw)} blocks), "
+            f"{int(v.sum())} neighbours, {ties} equal-distance neighbours, "
+            f"bit-equal; kernel {ms:.4f} ms (replaced kernel "
+            f"{KNN_EARLIER_MS[name]} ms), plain {plain:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {n_bytes} bytes)")
+        per_case.append({"case": name, "pixels": B * H * W, "lanes": lanes,
+                         "tile": [th, tw], "ms": ms, "bound_ms": b_ms})
+        tot["err"] = max(tot["err"], err)
         if name == "lattice":
             if ties < 1000:
                 raise RuntimeError(f"knn lattice: only {ties} ties")
@@ -816,13 +856,15 @@ def check_knn(cfg, example, device):
                          ("bytes", n_bytes), ("ops", n_ops)):
             tot[key] += val
     b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
-    log(f"knn: 4 scales {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    log(f"knn: 4 scales {tot['ms']:.4f} ms (replaced kernel "
+        f"{sum(KNN_EARLIER_MS[f's{s}'] for s in (2, 4, 8, 16)):.4f} ms), "
+        f"plain {tot['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "knn_select", "route": "cuda",
             "source": "dcf_torch/csrc/knn.cu",
             "replaces": "dcf/ops/pallas/knn_kernel.py:61",
-            "max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": tot["err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "per_case": per_case}
 
 
 def knn_path(cfg, example, device):

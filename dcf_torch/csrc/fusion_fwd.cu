@@ -62,6 +62,8 @@
 //   - store: each of the tile's image rows leaves as one bulk copy (TMA)
 //     where its global start is 16-byte aligned (W % 4 == 0; a 65-float
 //     pixel row is not aligned), else by coalesced 4-byte stores.
+// The keys, the insertion, the merge and the halo's slot masks are
+// shared with knn.cu (knn_select.cuh).
 // Everything accumulates in f32 in the plain version's order (features
 // 0..3, then + bg, then + z1; neighbours in key order) and the library is
 // built with --fmad=false, so the result equals the plain version bit
@@ -71,65 +73,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int V = 4;           // channels per z1 load (one float4)
 
-// A candidate's key: d2 (non-negative, below 1e30, so its bits order as
-// an unsigned integer does) above its index. Empty entries hold kEmpty,
-// above every key.
-typedef unsigned long long Key;
-constexpr Key kEmpty = ~0ull;
-
-__device__ __forceinline__ Key make_key(float d, int s) {
-  return ((Key)__float_as_uint(d) << 32) | (unsigned)s;
-}
-__device__ __forceinline__ float key_d(Key k) {
-  return __uint_as_float((unsigned)(k >> 32));
-}
-__device__ __forceinline__ int key_s(Key k) { return (int)(unsigned)k; }
-
-// Insert a key into the sorted K-list of the K smallest. All K
-// comparisons are made against the old list at once, so the chain is a
-// few operations deep, not K: entry k takes the new key if it is the
-// first greater one, entry k - 1's if a greater one came before.
-template <int K>
-__device__ __forceinline__ void insert(Key (&bk)[K], Key key) {
-  bool lt[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) lt[k] = key < bk[k];
-#pragma unroll
-  for (int k = K - 1; k > 0; --k)
-    if (lt[k]) bk[k] = lt[k - 1] ? bk[k - 1] : key;
-  if (lt[0]) bk[0] = key;
-}
-
-// The K smallest keys of two sorted K-lists, sorted, into bk: c[k] =
-// min(a[k], b[K-1-k]) holds the K smallest of the union (a bitonic
-// sequence), which an odd-even transposition network of K rounds then
-// sorts. Both partners of a butterfly get the same list.
-template <int K>
-__device__ __forceinline__ void merge(Key (&bk)[K], const Key (&ok)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) bk[k] = min(bk[k], ok[K - 1 - k]);
-#pragma unroll
-  for (int round = 0; round < K; ++round) {
-#pragma unroll
-    for (int k = round & 1; k + 1 < K; k += 2) {
-      const Key lo = min(bk[k], bk[k + 1]), hi = max(bk[k], bk[k + 1]);
-      bk[k] = lo;
-      bk[k + 1] = hi;
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
+using dcf::Key;
+using dcf::kEmpty;
 
 struct Smem {
   float* wg;       // [hid, 4]
@@ -205,24 +157,10 @@ fusion_fwd_kernel(const float4* __restrict__ data,
     uint32_t m = 0;
     if (gi >= 0 && gi < H && gj >= 0 && gj < W) {
       const size_t base = ((size_t)(b * H + gi) * W + gj) * C;
-      if (wide) {   // C % 8 == 0 and valid 8-byte aligned
-        const uint2* v8 = reinterpret_cast<const uint2*>(valid + base);
-        for (int q = 0; q < C / 8; ++q) {
-          const uint2 v = __ldg(v8 + q);
-          // one bit per nonzero byte, low byte first
-          const uint32_t lo = __vcmpne4(v.x, 0u) & 0x01010101u;
-          const uint32_t hi = __vcmpne4(v.y, 0u) & 0x01010101u;
-          const uint32_t m8 = ((lo | lo >> 7 | lo >> 14 | lo >> 21) & 0xfu) |
-                              ((hi | hi >> 7 | hi >> 14 | hi >> 21) & 0xfu)
-                                  << 4;
-          m |= m8 << (8 * q);
-        }
-      } else {
-        for (int c = 0; c < C; ++c) m |= (valid[base + c] ? 1u : 0u) << c;
-      }
+      m = dcf::slot_mask(valid, base, C, wide);
       for (uint32_t t = m; t != 0; t &= t - 1) {
         const int c = __ffs(t) - 1;
-        cp_async16(sm.pay + cl * C + c, data + base + c);
+        dcf::cp_async16(sm.pay + cl * C + c, data + base + c);
       }
     }
     sm.mask[cl] = m;
@@ -259,21 +197,15 @@ fusion_fwd_kernel(const float4* __restrict__ data,
             // the plain version marks invalid slots with d2 = 1e30 and
             // never selects anything at or above it
             if (!(d < 1e30f)) continue;
-            const Key key = make_key(d, s);
-            if (key < bk[K - 1]) insert<K>(bk, key);
+            const Key key = dcf::make_key(d, s);
+            if (key < bk[K - 1]) dcf::insert<K>(bk, key);
           }
         }
       }
     }
     // butterfly merge of the L lanes' lists (lanes of a pixel are L
     // consecutive lanes of one warp; L divides 32)
-    for (int off = 1; off < L; off <<= 1) {
-      Key ok[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        ok[k] = __shfl_xor_sync(0xffffffffu, bk[k], off);
-      merge<K>(bk, ok);
-    }
+    dcf::merge_lanes<K>(bk, L);
     if (inside) {
       int n = 0;
       const size_t pix = ((size_t)b * H + i) * W + j;
@@ -285,9 +217,9 @@ fusion_fwd_kernel(const float4* __restrict__ data,
         float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         int sel = -1;
         if (hit) {
-          const float4 q = sm.pay[key_s(bk[k])];
+          const float4 q = sm.pay[dcf::key_s(bk[k])];
           g = make_float4(q.x - cx, q.y - cy, q.z,
-                          sqrtf(fminf(key_d(bk[k]), 1e6f)));
+                          sqrtf(fminf(dcf::key_d(bk[k]), 1e6f)));
           sel = (int)q.w;
           sm.row[p * K + k] = b * P + sel;
         }

@@ -50,10 +50,10 @@ _SIGNATURES = {
                        _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # boxes_a, boxes_b, out, n, stream
     "dcf_clip_pairs": (_P, _P, _P, _I, _P),
-    # data, valid, nbr, ok, dist2, B, H, W, C, D, K, r, origin_x,
-    # origin_y, cell, stream
-    "dcf_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                       _F, _F, _P),
+    # data, valid, nbr, ok, dist2, B, H, W, C, D, K, r, lanes, tile_h,
+    # tile_w, origin_x, origin_y, cell, stream
+    "dcf_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _F, _F, _F, _P),
     # slab, oh transposed, out, blocks, stream
     "dcf_selection_mma_int8": (_P, _P, _P, _I, _P),
     "dcf_selection_mma_bf16": (_P, _P, _P, _I, _P),
@@ -158,7 +158,8 @@ def build_copy(source: str, name: str, transform,
     `BUILD_DIR/lib<name>.so` and load it, with the C signatures of the
     library's entry points that it defines and `signatures` (name ->
     argument types, returning int) set: a variant of one kernel beside
-    the library, for tools that stamp or time it."""
+    the library, for tools that stamp or time it. Its includes resolve
+    against `csrc/`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = os.path.join(BUILD_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
@@ -166,7 +167,7 @@ def build_copy(source: str, name: str, transform,
         text = transform(f.read())
     with open(cu, "w") as f:
         f.write(text)
-    flags = [f for f in COMPILE_FLAGS if f != "-c"]
+    flags = [f for f in COMPILE_FLAGS if f != "-c"] + ["-I", CSRC]
     subprocess.run([_nvcc(), *flags, "-shared", "-o", so, cu], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(so)

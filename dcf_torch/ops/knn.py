@@ -19,7 +19,7 @@ follows the twin.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -236,6 +236,50 @@ def knn_select_plain(bins: DenseBins, origin: Tuple[float, float],
 
 
 MAX_NEIGHBORS = 8      # the kernel's insertion list is unrolled up to this
+# the kernel's other limits: C slots a cell (a 32-bit mask), D payload
+# columns, the window radius r (the 2x4 tile's halo then always fits)
+MAX_SLOTS, MIN_COLS, MAX_COLS, MAX_RADIUS = 32, 2, 16, 3
+# lanes per pixel -> (tile rows, tile columns) of the kernel's 256-thread
+# blocks
+KNN_TILES = {2: (8, 16), 4: (8, 8), 8: (4, 8), 16: (4, 4), 32: (2, 4)}
+FILL_LANES = 8              # the most lanes the rule takes to fill the card
+SMEM_BYTES = 227 * 1024     # shared memory a block may opt in to (H100)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def knn_smem_bytes(th: int, tw: int, C: int, D: int, k: int, r: int) -> int:
+    """Shared memory of one block of the kernel (knn.cu's `Layout`): the
+    halo's payloads and slot masks, then the nbr stage."""
+    cells = (th + 2 * r) * (tw + 2 * r)
+    mask = _align16(4 * cells * C * D)
+    nbr = _align16(mask + 4 * cells)
+    return _align16(nbr + 4 * th * tw * k * D)
+
+
+def knn_launch_shape(B: int, H: int, W: int, C: int, D: int, k: int, r: int,
+                     sms: int) -> Tuple[int, int, int]:
+    """(lanes per pixel, tile rows, tile columns) for the kernel on a card
+    with `sms` multiprocessors. Among the tiles that fit in shared
+    memory: the fewest lanes whose grid has a block for every
+    multiprocessor, else FILL_LANES; more lanes (4x4 and 2x4 tiles) only
+    where no larger tile fits. A block's time is mostly a chain of
+    latencies that more lanes shorten only a little, while a second
+    block on a multiprocessor shares its issue slots: at the coarse
+    scales one block each on fewer multiprocessors was faster than two
+    on every one (`python -m dcf_torch.tools.profile_knn`)."""
+    fits = [(lanes, th, tw) for lanes, (th, tw) in KNN_TILES.items()
+            if knn_smem_bytes(th, tw, C, D, k, r) <= SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"knn_select_dense: no tile fits C={C}, D={D}, "
+                         f"k={k}, r={r} in shared memory")
+    fill = [shape for shape in fits if shape[0] <= FILL_LANES]
+    for lanes, th, tw in fill:
+        if B * -(-H // th) * -(-W // tw) >= sms:
+            return (lanes, th, tw)
+    return fill[-1] if fill else fits[0]
 
 
 def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
@@ -243,9 +287,20 @@ def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K nearest point payloads for every grid cell centre (same arguments
     and results as `knn_select_plain`): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. The kernel writes 0 into `nbr`
-    where `valid` is False; its `valid`, `dist2` and the valid `nbr` rows
-    equal the plain version's bit for bit."""
+    one launch per call, the plain version for CPU tensors. The kernel
+    writes 0 into `nbr` where `valid` is False; its `valid`, `dist2` and
+    the valid `nbr` rows equal the plain version's bit for bit.
+
+    The kernel takes 1 <= k <= 8, C <= 32 bin slots, 2 <= D <= 16 payload
+    columns and radius_cells <= 3, and raises a ValueError beyond them;
+    the plain version on CPU tensors takes any shape."""
+    return _select(bins, origin, cell_size, k, radius_cells)
+
+
+def _select(bins: DenseBins, origin: Tuple[float, float], cell_size: float,
+            k: int, radius_cells: int, lanes: Optional[int] = None):
+    """`knn_select_dense` with `lanes` per pixel (default:
+    `knn_launch_shape`'s choice)."""
     data, valid = bins
     if data.device.type == "cpu":
         return knn_select_plain(bins, origin, cell_size, k, radius_cells)
@@ -261,9 +316,13 @@ def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
                 f"knn_select_dense: {name} must be a contiguous {dtype} "
                 f"{shape} tensor on {data.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    if not 1 <= k <= MAX_NEIGHBORS or D < 2 or radius_cells < 0:
-        raise ValueError(f"knn_select_dense: k={k} outside [1, "
-                         f"{MAX_NEIGHBORS}], D={D} < 2 or r < 0")
+    if not (1 <= k <= MAX_NEIGHBORS and 1 <= C <= MAX_SLOTS
+            and MIN_COLS <= D <= MAX_COLS and 0 <= radius_cells <= MAX_RADIUS):
+        raise ValueError(
+            f"knn_select_dense: the kernel takes 1 <= k <= {MAX_NEIGHBORS}, "
+            f"C <= {MAX_SLOTS}, {MIN_COLS} <= D <= {MAX_COLS} and "
+            f"0 <= r <= {MAX_RADIUS}, got k={k}, C={C}, D={D}, "
+            f"r={radius_cells}")
     if data.numel() >= 2 ** 31 or B * H * W * k * D >= 2 ** 31:
         raise ValueError("knn_select_dense: tensors too large for int32 "
                          "indices")
@@ -272,9 +331,17 @@ def knn_select_dense(bins: DenseBins, origin: Tuple[float, float],
     ok = torch.empty((B, H, W, k), dtype=torch.bool, device=dev)
     d2 = torch.empty((B, H, W, k), dtype=torch.float32, device=dev)
     if ok.numel():
+        if lanes is None:
+            lanes, th, tw = knn_launch_shape(B, H, W, C, D, k, radius_cells,
+                                             _cuda.sm_count(dev))
+        elif lanes in KNN_TILES:
+            th, tw = KNN_TILES[lanes]
+        else:
+            raise ValueError(f"knn_select_dense: lanes={lanes} not in "
+                             f"{tuple(KNN_TILES)}")
         err = _cuda.library().dcf_knn_select(
             data.data_ptr(), valid.data_ptr(), nbr.data_ptr(), ok.data_ptr(),
-            d2.data_ptr(), B, H, W, C, D, k, radius_cells,
+            d2.data_ptr(), B, H, W, C, D, k, radius_cells, lanes, th, tw,
             ctypes.c_float(origin[0]), ctypes.c_float(origin[1]),
             ctypes.c_float(cell_size),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -24,47 +24,29 @@ import numpy as np
 import torch
 
 from dcf_torch.ops import _cuda, fusion
+from dcf_torch.tools import stamps
 from dcf_torch.utils.timing import graph_ms
 
 PHASES = ("halo", "phase1", "phase2", "store")
-# (anchor in fusion_fwd.cu, stamp inserted after it)
-_STAMPS = (
+STAMP_BLOCKS = 1 << 16
+# (anchor in fusion_fwd.cu, stamp, inserted after it)
+_INSERTS = (
     ("  const int tid = threadIdx.x;\n",
-     "  long long tt[5];\n  tt[0] = clock64();\n"),
+     "  long long tt[5];\n  tt[0] = clock64();\n", True),
     ('  asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
-     "  __syncthreads();\n", "  tt[1] = clock64();\n"),
+     "  __syncthreads();\n", "  tt[1] = clock64();\n", True),
     ("  __syncthreads();   // the halo is dead from here: phase 2 stages "
-     "over it\n", "  tt[2] = clock64();\n"),
+     "over it\n", "  tt[2] = clock64();\n", True),
     ('  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
-     "  __syncthreads();\n", "  tt[3] = clock64();\n"))
-_END = ("  if (bulk) {   // the stage must outlive the copies' reads\n")
-
-
-def stamped_source(src: str) -> str:
-    """fusion_fwd.cu with the phase stamps and a reader of them."""
-    for anchor, stamp in _STAMPS:
-        src = _cuda.insert_at(src, anchor, stamp)
-    src = _cuda.insert_at(src, _END, (
-        "  __syncthreads();\n  tt[4] = clock64();\n"
-        "  if (tid == 0) {\n"
-        "    const int bl = (blockIdx.z * gridDim.y + blockIdx.y) * "
-        "gridDim.x + blockIdx.x;\n"
-        "    if (bl < kStampBlocks)\n"
-        "      for (int q = 0; q < 4; ++q) "
-        "g_stamps[bl * 4 + q] = tt[q + 1] - tt[q];\n  }\n"), after=False)
-    src = src.replace("namespace {\n", (
-        "constexpr int kStampBlocks = 1 << 16;\n"
-        "__device__ long long g_stamps[kStampBlocks * 4];\n"
-        "namespace {\n"), 1)
-    return src + ('\nextern "C" int dcf_fusion_stamps(void* host, int n) {\n'
-                  "  return (int)cudaMemcpyFromSymbol(host, g_stamps, "
-                  "n * sizeof(long long));\n}\n")
+     "  __syncthreads();\n", "  tt[3] = clock64();\n", True),
+    ("  if (bulk) {   // the stage must outlive the copies' reads\n",
+     stamps.block_record(4), False))
 
 
 def build_stamped() -> ctypes.CDLL:
-    return _cuda.build_copy(
-        "fusion_fwd.cu", "fusion_fwd_stamped", stamped_source,
-        {"dcf_fusion_stamps": (ctypes.c_void_p, ctypes.c_int)})
+    """fusion_fwd.cu with the phase stamps, built beside the library."""
+    return stamps.build("fusion_fwd.cu", "fusion_fwd_stamped", STAMP_BLOCKS,
+                        len(PHASES), _INSERTS)
 
 
 def _launch(lib, args, lanes: int, out) -> None:
@@ -103,9 +85,7 @@ def run(device="cuda"):
             _launch(stamped, args, lanes, out)
             torch.cuda.synchronize()
             blocks = B * -(-H // th) * -(-W // tw)
-            buf = (ctypes.c_longlong * (4 * blocks))()
-            _cuda.check(stamped.dcf_fusion_stamps(buf, 4 * blocks), "stamps")
-            cyc = np.array(buf[:], dtype=np.float64).reshape(blocks, 4)
+            cyc = stamps.read(stamped, blocks, len(PHASES))
             rows.append({"stride": s, "pixels": B * H * W, "lanes": lanes,
                          "tile": [th, tw], "blocks": blocks,
                          "chosen": lanes == auto, "ms": ms,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from dcf_torch.ops import _cuda, fusion
+from dcf_torch.tools import stamps
 from dcf_torch.utils.timing import graph_ms
 
 # per warp: setup (weights loaded, the fill waited for), counts (the chunk's counts loaded),
@@ -35,8 +36,9 @@ from dcf_torch.utils.timing import graph_ms
 PHASES = ("setup", "counts", "first", "zeros", "bucket", "rows", "next",
           "tail")
 NPH = len(PHASES)
+PROF_WARPS = 1 << 14
 _STAMP = "DCF_STAMP({});\n"
-# (anchor in fusion_bwd.cu, phase whose stamp goes after it)
+# (anchor in fusion_bwd.cu, phase whose stamp goes after / before it)
 _AFTER = (
     ("  const int tw = gridDim.x * NW;\n", 0),
     ("    unsigned todo = __ballot_sync(kAll, my_n > 0);\n", 1),
@@ -48,11 +50,8 @@ _BEFORE = (
     ("  __syncwarp();\n}\n\n// CH channels per lane", 5))
 _START = "  float w[CH][4], bc[CH], part[CH][5];\n"
 _END = "    partials[e * gridDim.x + blockIdx.x] = s_red[e];\n  }\n"
-_PRELUDE = """
-constexpr int kProfWarps = 1 << 14;
-constexpr int kPhases = %d;
-__device__ unsigned long long g_prof[kProfWarps * kPhases];
-__shared__ unsigned long long prof_t[32];
+# a warp's lane 0 adds the cycles since its last stamp to phase k
+_PRELUDE = """__shared__ unsigned long long prof_t[32];
 __shared__ unsigned long long prof_acc[32][kPhases];
 #define DCF_STAMP(k)                                                   \\
   do {                                                                 \\
@@ -63,13 +62,22 @@ __shared__ unsigned long long prof_acc[32][kPhases];
     }                                                                  \\
     __syncwarp();                                                      \\
   } while (0)
-""" % NPH
+"""
+_INSERTS = (
+    tuple((a, _STAMP.format(k), True) for a, k in _AFTER)
+    + tuple((a, _STAMP.format(k), False) for a, k in _BEFORE)
+    + ((_START, "  if ((threadIdx.x & 31) == 0) {\n"
+       "    prof_t[threadIdx.x >> 5] = clock64();\n"
+       "    for (int q = 0; q < kPhases; ++q) "
+       "prof_acc[threadIdx.x >> 5][q] = 0;\n  }\n", True),
+       (_END, _STAMP.format(NPH - 1)
+        + "  if ((threadIdx.x & 31) == 0) {\n"
+        "    const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;\n"
+        "    if (gw < kStampRows)\n"
+        "      for (int q = 0; q < kPhases; ++q)\n"
+        "        g_stamps[gw * kPhases + q] = prof_acc[threadIdx.x >> 5][q];\n"
+        "  }\n", True)))
 _EXPORTS = """
-extern "C" int dcf_fusion_bwd_prof(void* host, int n) {
-  return (int)cudaMemcpyFromSymbol(host, g_prof,
-                                   n * sizeof(unsigned long long));
-}
-
 extern "C" int dcf_fusion_bwd_fill_only(const void* sel, const void* geo,
                                         void* cnt, void* lists, void* feats,
                                         int npix, int hw, int K, int P,
@@ -95,36 +103,15 @@ extern "C" int dcf_fusion_bwd_combine_only(const void* partials, void* dwgt,
 """
 
 
-def stamped_source(src: str) -> str:
-    """fusion_bwd.cu with the phase stamps and readers of them."""
-    for anchor, k in _AFTER:
-        src = _cuda.insert_at(src, anchor, _STAMP.format(k))
-    for anchor, k in _BEFORE:
-        src = _cuda.insert_at(src, anchor, _STAMP.format(k), after=False)
-    src = _cuda.insert_at(src, _START, (
-        "  if ((threadIdx.x & 31) == 0) {\n"
-        "    prof_t[threadIdx.x >> 5] = clock64();\n"
-        "    for (int q = 0; q < kPhases; ++q) "
-        "prof_acc[threadIdx.x >> 5][q] = 0;\n  }\n"))
-    src = _cuda.insert_at(src, _END, (
-        _STAMP.format(NPH - 1)
-        + "  if ((threadIdx.x & 31) == 0) {\n"
-        "    const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;\n"
-        "    if (gw < kProfWarps)\n"
-        "      for (int q = 0; q < kPhases; ++q)\n"
-        "        g_prof[gw * kPhases + q] = prof_acc[threadIdx.x >> 5][q];\n"
-        "  }\n"))
-    src = src.replace("namespace {\n", _PRELUDE + "namespace {\n", 1)
-    return src + _EXPORTS
-
-
 def build_stamped() -> ctypes.CDLL:
+    """fusion_bwd.cu with the phase stamps and launchers of its fill and
+    combine kernels alone, built beside the library."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    return _cuda.build_copy(
-        "fusion_bwd.cu", "fusion_bwd_stamped", stamped_source,
+    return stamps.build(
+        "fusion_bwd.cu", "fusion_bwd_stamped", PROF_WARPS, NPH, _INSERTS,
+        _PRELUDE, _EXPORTS,
         {"dcf_fusion_bwd_fill_only": (P, P, P, P, P, I, I, I, I, P),
-         "dcf_fusion_bwd_combine_only": (P, P, P, I, I, P),
-         "dcf_fusion_bwd_prof": (P, I)})
+         "dcf_fusion_bwd_combine_only": (P, P, P, I, I, P)})
 
 
 def run(device="cuda"):
@@ -178,9 +165,7 @@ def run(device="cuda"):
         got = outs
         nthreads = 1024 if hid <= 64 else 512 if hid <= 128 else 256
         warps = blocks * nthreads // 32
-        buf = (ctypes.c_ulonglong * (NPH * warps))()
-        _cuda.check(stamped.dcf_fusion_bwd_prof(buf, NPH * warps), "prof")
-        cyc = np.array(buf[:], dtype=np.float64).reshape(warps, NPH)
+        cyc = stamps.read(stamped, warps, NPH)
         rows.append({"stride": s, "pixels": B * H * W,
                      "pairs": int((sel >= 0).sum()), "ms": ms,
                      "fill_ms": fill_ms, "combine_ms": combine_ms,

@@ -5,9 +5,9 @@ CUDA toolkit.
 
 Builds the kernel library if needed, disassembles it with
 `cuobjdump -sass`, and prints per kernel whose mangled name contains one
-of NAME (default: selection_mma, fusion_fwd) the count of each opcode
-family that shows how it was compiled: the tensor-core instructions
-(HGMMA, IGMMA, HMMA, IMMA), TMA (UTMALDG, UBLKCP), mbarrier waits
+of NAME (default: selection_mma, fusion_fwd, knn_select) the count of
+each opcode family that shows how it was compiled: the tensor-core
+instructions (HGMMA, IGMMA, HMMA, IMMA), TMA (UTMALDG, UBLKCP), mbarrier waits
 (SYNCS), register reallocation (USETMAXREG), local-memory spills (STL,
 LDL), atomics (ATOM: ATOMG / ATOMS, RED: reductions to memory; REDUX,
 a warp's reduction in registers, also counts there), and one example
@@ -48,7 +48,10 @@ def opcodes(block: str) -> collections.Counter:
                                for m in _OP.finditer(block))
 
 
-def summary(names=("selection_mma", "fusion_fwd")):
+DEFAULT = ("selection_mma", "fusion_fwd", "knn_select")
+
+
+def summary(names=DEFAULT):
     """{kernel: ({family: count}, {family: first line})}."""
     out = {}
     for name, block in kernels_sass():
@@ -69,8 +72,7 @@ def summary(names=("selection_mma", "fusion_fwd")):
 
 
 def main(argv=None) -> int:
-    names = tuple(argv if argv is not None else sys.argv[1:]) or (
-        "selection_mma", "fusion_fwd")
+    names = tuple(argv if argv is not None else sys.argv[1:]) or DEFAULT
     for name, (counts, first) in summary(names).items():
         print(name, flush=True)
         print("   ", counts, flush=True)

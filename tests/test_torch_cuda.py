@@ -13,9 +13,9 @@ the same order and the library is built without FMA contraction, so it
 must agree exactly, at every lane count and with the stash. The clip kernel does too, except that CUDA's cosf /
 sinf and PyTorch's may differ in the last ulp: atol 1e-4 x (1 + area).
 The KNN kernel repeats its plain version's selection in the same scan
-order: valid and dist2 exactly, nbr exactly where valid, with exact
-distance ties. The int8 micro-benchmark kernel is exact (integer sums);
-its bf16 twin is within `int8_mma.selection_mma_tolerance`, the bound
+order: valid and dist2 exactly, nbr exactly where valid (0 elsewhere),
+with exact distance ties, at every lane count. The int8 micro-benchmark
+kernel is exact (integer sums); its bf16 twin is within `int8_mma.selection_mma_tolerance`, the bound
 for its summation order. The int8
 conv's unfold + `torch._int_mm` equals the float64 plain conv exactly.
 Served end to end in float32 (TF32 off), the card and the CPU differ by
@@ -260,20 +260,104 @@ def test_tiny_serving_on_card_matches_cpu(card):
     chip_smoke.check_tiny_reference()
 
 
-@pytest.mark.parametrize("k,lattice,r", [(1, False, 1), (4, False, 1),
-                                         (4, True, 1), (8, True, 2),
-                                         (3, True, 0)])
-def test_knn_kernel_matches_plain(card, k, lattice, r):
-    data, valid = _fusion_args(20 + k, card, k=k, lattice=lattice)[:2]
-    bins = knn.DenseBins(data, valid)
-    before = knn.knn_select_dense.launches
-    nbr, ok, d2 = knn.knn_select_dense(bins, (0.0, 0.0), 1.0, k, r)
-    assert knn.knn_select_dense.launches == before + 1
-    pn, pv, pd = knn.knn_select_plain(bins, (0.0, 0.0), 1.0, k, r)
+def _knn_bins(seed, device, B, H, W, C, D, lattice, frac=0.9):
+    """Dense bins of about 0.6 x H x W x C points with D payload columns
+    (x, y on a quarter-cell lattice with `lattice`), a fraction `frac`
+    of them valid."""
+    rng = np.random.default_rng(seed)
+    P = max(1, int(0.6 * H * W * C))
+    pts = np.zeros((B, P, D), np.float32)
+    if lattice:
+        pts[..., 0] = rng.integers(-4, 4 * H + 4, (B, P)) / 4 + 0.125
+        pts[..., 1] = rng.integers(-4, 4 * W + 4, (B, P)) / 4 + 0.125
+    else:
+        pts[..., 0] = rng.uniform(-1, H + 1, (B, P))
+        pts[..., 1] = rng.uniform(-1, W + 1, (B, P))
+    pts[..., 2:] = rng.normal(size=(B, P, D - 2))
+    mask = rng.uniform(size=(B, P)) < frac
+    bins = bin_points_dense(torch.from_numpy(pts).to(device),
+                            torch.from_numpy(mask).to(device), (0.0, 0.0),
+                            1.0, (H, W), C)
+    return knn.DenseBins(bins.data.contiguous(), bins.valid.contiguous())
+
+
+def _knn_equal(got, want):
+    """ok and dist2 bit for bit, nbr where valid and 0 elsewhere."""
+    pn, pv, pd = want
+    nbr, ok, d2 = got
     assert torch.equal(ok, pv) and torch.equal(d2, pd)
     assert torch.equal(nbr[pv], pn[pv]) and not nbr[~pv].any()
+
+
+# every K, r = 0 / 1 / 2, grids that no tile divides, B = 1 and 2,
+# C = 4 / 8 / 32, D = 2 / 3 / 4 / 7 / 16, random points and the
+# quarter-cell lattice's exact ties; the first five are the main path's
+# C = 8, D = 4 on 24 x 40
+@pytest.mark.parametrize("k,lattice,r,B,H,W,C,D", [
+    (1, False, 1, 2, 24, 40, 8, 4), (4, False, 1, 2, 24, 40, 8, 4),
+    (4, True, 1, 2, 24, 40, 8, 4), (8, True, 2, 2, 24, 40, 8, 4),
+    (3, True, 0, 2, 24, 40, 8, 4),
+    (2, True, 1, 2, 7, 9, 4, 2), (5, False, 2, 1, 45, 51, 32, 7),
+    (6, True, 0, 2, 45, 51, 8, 3), (7, True, 1, 1, 7, 9, 32, 4),
+    (8, False, 2, 2, 45, 51, 4, 3), (1, True, 2, 1, 45, 51, 8, 7),
+    (3, False, 1, 2, 7, 9, 8, 2), (5, True, 2, 2, 45, 51, 32, 16)])
+def test_knn_kernel_matches_plain(card, k, lattice, r, B, H, W, C, D):
+    """Bit-equal to the plain version with the wrapper's launch shape (one
+    launch) and at every lane count whose tile fits."""
+    if (B, H, W, C, D) == (2, 24, 40, 8, 4):
+        data, valid = _fusion_args(20 + k, card, k=k, lattice=lattice)[:2]
+        bins = knn.DenseBins(data, valid)
+    else:
+        bins = _knn_bins(20 + k, card, B, H, W, C, D, lattice)
+    want = knn.knn_select_plain(bins, (0.0, 0.0), 1.0, k, r)
+    before = knn.knn_select_dense.launches
+    _knn_equal(knn.knn_select_dense(bins, (0.0, 0.0), 1.0, k, r), want)
+    assert knn.knn_select_dense.launches == before + 1
+    for lanes, (th, tw) in knn.KNN_TILES.items():
+        if knn.knn_smem_bytes(th, tw, C, D, k, r) <= knn.SMEM_BYTES:
+            _knn_equal(knn._select(bins, (0.0, 0.0), 1.0, k, r, lanes=lanes),
+                       want)
+    pv, pd = want[1:]
+    ties = int(((pd[..., 1:] == pd[..., :-1]) & pv[..., 1:]).sum())
     if lattice and k > 1:
-        assert ((d2[..., 1:] == d2[..., :-1]) & pv[..., 1:]).sum() > 50
+        assert ties > (50 if B * H * W >= 1000 else 0)
+
+
+def test_knn_kernel_all_invalid_and_empty(card):
+    """All-invalid bins: no neighbour, inf distances, zero rows, at every
+    lane count; an empty grid: empty results and no launch."""
+    bins = _knn_bins(1, card, 2, 45, 51, 8, 4, False, frac=0.0)
+    assert not bins.valid.any()
+    for lanes in knn.KNN_TILES:
+        nbr, ok, d2 = knn._select(bins, (0.0, 0.0), 1.0, 4, 1, lanes=lanes)
+        assert not ok.any() and not nbr.any() and bool(torch.isinf(d2).all())
+    empty = knn.DenseBins(bins.data[:, :0], bins.valid[:, :0])
+    before = knn.knn_select_dense.launches
+    nbr, ok, d2 = knn.knn_select_dense(empty, (0.0, 0.0), 1.0, 4, 1)
+    assert knn.knn_select_dense.launches == before
+    assert (nbr.shape, ok.shape, d2.shape) == ((2, 0, 51, 4, 4), (2, 0, 51, 4),
+                                               (2, 0, 51, 4))
+
+
+def test_knn_wrapper_rejects_beyond_limits(card):
+    """k 1-8, C <= 32, 2 <= D <= 16, r <= 3, and the tensors' type and
+    layout: beyond them the wrapper raises, it does not fall back."""
+    bins = _knn_bins(2, card, 1, 9, 11, 8, 4, False)
+    wide = _knn_bins(2, card, 1, 9, 11, 33, 4, False)
+    for args in ((bins, 9, 1), (bins, 0, 1), (bins, 4, 4), (bins, 4, -1),
+                 (wide, 4, 1), (_knn_bins(2, card, 1, 9, 11, 8, 17, False),
+                                4, 1)):
+        with pytest.raises(ValueError):
+            knn.knn_select_dense(args[0], (0.0, 0.0), 1.0, *args[1:])
+    narrow = knn.DenseBins(bins.data[..., :1].contiguous(), bins.valid)
+    bad = (knn.DenseBins(bins.data.transpose(1, 2), bins.valid),
+           knn.DenseBins(bins.data.double(), bins.valid),
+           knn.DenseBins(bins.data, bins.valid[..., :-1]), narrow)
+    for b in bad:
+        with pytest.raises(ValueError):
+            knn.knn_select_dense(b, (0.0, 0.0), 1.0, 4, 1)
+    with pytest.raises(ValueError):
+        knn._select(bins, (0.0, 0.0), 1.0, 4, 1, lanes=3)
 
 
 def test_knn_kernel_main_path_shapes(card):

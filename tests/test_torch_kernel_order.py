@@ -7,10 +7,13 @@ pixel's candidates over L lanes (lane l takes bin slots c = l, l + L,
 butterfly of bitonic merges (the elementwise minimum of one list and the
 other reversed, then sorted) by the key (d2, candidate index), where the
 candidate index is the slot's index in the tile's halo: ((ti + di) *
-(TW + 2r) + tj + dj) * C + c. `_lane_split_select` repeats that with tensors; it must equal
-`knn_select_plain` (the first-minimum argmin in scan order) bit for bit,
-ties included, for one lane and for every lane count and tile the kernel
-uses.
+(TW + 2r) + tj + dj) * C + c. The KNN kernel (`dcf_torch/csrc/knn.cu`)
+selects the same way with its own tiles and 1 to 32 lanes, splitting by
+window cell and slot: lane l takes the candidates w * C + c = l (mod L),
+w = di * (2r + 1) + dj. `_lane_split_select` repeats either with
+tensors; it must equal `knn_select_plain` (the first-minimum argmin in
+scan order) bit for bit, ties included, for one lane and for every lane
+count and tile each kernel uses.
 
 The bf16 micro-benchmark kernel (`dcf_torch/csrc/int8_mma.cu`) sums each
 output element in one float32 accumulator over all 128 products, in the
@@ -53,6 +56,7 @@ from chip_smoke import CLIP_HARD
 from dcf_torch.geometry.boxes import (_cross2, box_corners_bev,
                                       rotated_intersection_area)
 from dcf_torch.ops.fusion import FWD_TILES, fusion_launch_shape
+from dcf_torch.ops.knn import KNN_TILES, knn_launch_shape, knn_smem_bytes
 
 torch.set_num_threads(1)
 
@@ -95,13 +99,15 @@ def _bitonic_merge(a, b):
                      ad.shape[-1])
 
 
-def _lane_split_select(bins, k, r, lanes):
-    """The fusion kernel's selection: per-lane K-lists keyed by (d2, halo
-    index), merged by a butterfly over the lanes. Returns (nbr, valid,
-    dist2) as `knn_select_plain` does."""
+def _lane_split_select(bins, k, r, lanes, tiles=FWD_TILES, by_cell=False):
+    """A kernel's selection: per-lane K-lists keyed by (d2, halo index),
+    merged by a butterfly over the lanes; lane l takes the slots c = l
+    (mod lanes) of every window cell, or with `by_cell` the candidates
+    w * C + c = l (mod lanes) (the KNN kernel's split). Returns (nbr,
+    valid, dist2) as `knn_select_plain` does."""
     data, valid = bins
     B, Hh, Ww, C, D = data.shape
-    th, tw = FWD_TILES.get(lanes, (16, 16))   # one lane: the plain scan
+    th, tw = tiles.get(lanes, (16, 16))   # one lane: the plain scan
     win = 2 * r + 1
     pdata = torch.nn.functional.pad(data, (0, 0, 0, 0, r, r, r, r))
     pvalid = torch.nn.functional.pad(valid.to(torch.uint8),
@@ -125,12 +131,14 @@ def _lane_split_select(bins, k, r, lanes):
     d2 = torch.stack(d2s, -2)                                # [B,H,W,9,C]
     key = torch.stack(keys, -2)
     cand = torch.cat(cands, -2)                              # [B,H,W,9C,D]
-    # per lane: slots c = lane (mod lanes), then its K-list
+    # per lane: its candidates, then its K-list
+    w = torch.arange(win * win)[:, None]
+    q = w * C + c if by_cell else c.expand(win * win, C)     # [9, C]
     lists = []
     for lane in range(lanes):
-        sel = c % lanes == lane
-        ld = d2[..., sel].flatten(-2)
-        ls = key[..., sel].flatten(-2)
+        sel = q % lanes == lane
+        ld = d2[..., sel]
+        ls = key[..., sel]
         pad = max(0, k - ld.shape[-1])
         ld = torch.nn.functional.pad(ld, (0, pad), value=torch.inf)
         ls = torch.nn.functional.pad(ls, (0, pad), value=2 ** 40)
@@ -165,6 +173,72 @@ def test_lane_split_selection_matches_plain(lanes, lattice, k, r):
     if lattice:   # the ties that the key has to order
         ties = (d2[..., 1:] == d2[..., :-1]) & ok[..., 1:]
         assert int(ties.sum()) > 100
+
+
+# every K and r = 0..2, bin capacities C that are and are not multiples
+# of the lane count, random points and the quarter-cell lattice's ties
+KNN_SPLIT_CASES = [(False, 1, 0, 8), (True, 2, 1, 8), (False, 3, 2, 5),
+                   (True, 4, 1, 4), (True, 5, 0, 32), (False, 6, 1, 8),
+                   (True, 7, 2, 8), (True, 8, 2, 5)]
+
+
+@pytest.mark.parametrize("lanes", list(KNN_TILES))
+@pytest.mark.parametrize("lattice,k,r,cap", KNN_SPLIT_CASES)
+def test_knn_lane_split_selection_matches_plain(lanes, lattice, k, r, cap):
+    """The KNN kernel's split by (window cell, slot) at every lane count
+    its rule can pick, bit-equal to the plain version."""
+    bins = _bins(lanes + 10 * k, lattice, cap=cap)
+    want_nbr, want_ok, want_d2 = tknn.knn_select_plain(bins, (0.0, 0.0),
+                                                       1.0, k, r)
+    nbr, ok, d2 = _lane_split_select(bins, k, r, lanes, KNN_TILES,
+                                     by_cell=True)
+    assert torch.equal(ok, want_ok) and torch.equal(d2, want_d2)
+    assert torch.equal(nbr[ok], want_nbr[want_ok])
+    if lattice and k > 1:   # the ties that the key has to order
+        assert int(((d2[..., 1:] == d2[..., :-1]) & ok[..., 1:]).sum()) > 0
+
+
+@pytest.mark.parametrize("B,H,W,lanes", [
+    (1, 352, 400, 2), (1, 176, 200, 2), (1, 88, 100, 4), (1, 44, 50, 8),
+    (2, 352, 400, 2), (2, 176, 200, 2), (2, 88, 100, 2), (2, 44, 50, 8),
+    (1, 7, 9, 8)])
+def test_knn_launch_shape(B, H, W, lanes):
+    """The KNN kernel's launch shape at the main path's four scales (C = 8,
+    D = 4, K = 4, r = 1; B = 1 and 2) on a 132-SM card: 256 threads per
+    block, the fewest lanes whose grid has a block per SM, else 8."""
+    got = knn_launch_shape(B, H, W, 8, 4, 4, 1, 132)
+    assert got[0] == lanes and got[0] * got[1] * got[2] == 256
+    assert got[2] & (got[2] - 1) == 0
+    assert B * -(-H // got[1]) * -(-W // got[2]) >= 132 or lanes == 8
+
+
+def test_knn_launch_shape_shared_memory():
+    """Where a shape's tiles do not fit in shared memory the rule takes a
+    smaller one; at the kernel's limits (C 32, D 16, K 8, r 3) the
+    smallest tile fits, one step beyond (r 4) none does."""
+    assert knn_smem_bytes(8, 16, 8, 4, 4, 1) <= tknn.SMEM_BYTES
+    assert knn_launch_shape(1, 352, 400, 32, 16, 8, 3, 132) == (16, 4, 4)
+    assert knn_launch_shape(1, 44, 50, 32, 16, 8, 2, 132) == (8, 4, 8)
+    assert knn_smem_bytes(2, 4, tknn.MAX_SLOTS, tknn.MAX_COLS,
+                          tknn.MAX_NEIGHBORS,
+                          tknn.MAX_RADIUS) <= tknn.SMEM_BYTES
+    with pytest.raises(ValueError):
+        knn_launch_shape(1, 44, 50, 32, 16, 8, 4, 132)
+
+
+def test_knn_plain_takes_any_shape():
+    """On CPU tensors `knn_select_dense` is the plain version, beyond the
+    kernel's limits too (C = 40, D = 17, k = 9, r = 4)."""
+    rng = np.random.default_rng(3)
+    pts = np.zeros((1, 300, 17), np.float32)
+    pts[..., :2] = rng.uniform(0, 9, (1, 300, 2))
+    bins = tknn.bin_points_dense(torch.from_numpy(pts),
+                                 torch.ones((1, 300), dtype=torch.bool),
+                                 (0.0, 0.0), 1.0, (9, 9), 40)
+    got = tknn.knn_select_dense(bins, (0.0, 0.0), 1.0, 9, 4)
+    want = tknn.knn_select_plain(bins, (0.0, 0.0), 1.0, 9, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].shape == (1, 9, 9, 9, 17) and bool(got[1].all())
 
 
 def _bf16_kernel_order(slab, oh):
