@@ -68,7 +68,25 @@ Phases, each printed on its own line with the seconds elapsed:
      same weights and calibration on the card and on the CPU: every
      ConvNorm's int32 product on the card, fed the card's activation,
      equal to the CPU's plain conv of it; head maps within INT8_REL_L2 of
-     the int8-vs-float32 distance.
+     the int8-vs-float32 distance;
+ 12. evaluation through the CLI (`dcf_torch.cli`): an 8-frame KITTI tree
+     (`write_kitti_tree`, 375x1242 PNGs decoded back by `data/png.py`,
+     ms per image), `build_gt_db`, `train --config full --steps 3` (the
+     config's batch of 8; 4 / 4 / 1 launches per step), `evaluate
+     --split val --num-frames 6 --batch-size 4 --num-points 0
+     --results-dir ...` at full width (two batches, the second padded):
+     an AP entry for every class x difficulty x metric, one result file
+     per frame with 16 fields a line, 4 fusion forward and 1 clip
+     launches per batch (the `eval` path), and every fusion forward and
+     clip call of that run, recorded with its inputs, held to its plain
+     version as phase 3 holds it (the forward bit-equal at B=4, the clip
+     on the batch's 4 x 3 x 256 x 256 NMS pairs); `demo --config full
+     --synthetic 1`; `run_eval` of `tiny_config` in float32 (TF32 off)
+     on 4 frames on the card and on the CPU with the same weights: the
+     same detections and AP dict; then seconds per frame of `run_eval`
+     at full width on 16 synthetic frames at batch 8, split into
+     inference and host evaluation, the latter with every detection of
+     the random head (128 a frame) and with a trained model's count.
 
 Then one JSON line describing every kernel (launches: the sum over the
 paths, and per path), and last the line `{"ok": true, "device": {...}}`.
@@ -78,6 +96,7 @@ it does without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -104,6 +123,14 @@ TINY_GRAD_ATOL = 1e-3             # x max|want|; tests/test_torch_train.py
 # bound does not hold end to end; independent quantization noise would
 # sit near sqrt(2) (tests/test_torch_quant.py)
 INT8_REL_L2 = 0.75
+# phase 12: steps that fit tiny_config to its 4 frames before the card /
+# CPU run_eval comparison (a CPU rehearsal: Pedestrian AP 0.125 after
+# 50 steps, 0.25 after 100)
+OVERFIT_STEPS = 100
+# phase 12: detections a frame per gt box of the trained weights
+# (runs_r5/gen_r5, ckpt_00008000) on the 16 val frames: 111 for 69 gt
+# boxes in float32 on the CPU (tests/test_torch_ap.py prints them)
+TRAINED_DETS_PER_GT = 111 / 69
 
 
 def log(msg: str) -> None:
@@ -1112,6 +1139,322 @@ def check_tiny_int8():
         f"{ {k: round(v, 4) for k, v in within.items()} }")
 
 
+@contextlib.contextmanager
+def _recorded(module, name, calls):
+    """While inside, every call of `module.<name>` is appended to `calls`
+    as (args, output)."""
+    orig = getattr(module, name)
+
+    def record(*args):
+        out = orig(*args)
+        calls.append((args, out))
+        return out
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def check_eval_kernels(fusion_calls, clip_calls, device):
+    """The fusion forward and the clip on the inputs that the `eval` path
+    gave them (recorded in `cli.evaluate`: B=4 frames a batch, z1 from
+    the trained model, the NMS pairs of the batch): every forward call
+    bit-equal to its plain version, as phase 3 holds it, with its launch
+    shape; the clip within CLIP_TOL, as phase 3 holds it."""
+    import torch
+    from dcf_torch.ops import _cuda
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs_plain
+    from dcf_torch.ops.fusion import fused_fusion_plain, fusion_launch_shape
+    shapes = []
+    for args, got in fusion_calls:
+        want = fused_fusion_plain(*args)
+        B, H, W = args[0].shape[:3]
+        if not torch.equal(got, want):
+            raise RuntimeError(
+                f"eval: fusion forward at B={B}, {(H, W)} differs from "
+                f"plain, max|err| {(got - want).abs().max().item()}")
+        lanes, th, tw = fusion_launch_shape(B, H, W, _cuda.sm_count(device))
+        shapes.append(f"B={B} {H}x{W}: {lanes} lanes, {th}x{tw}")
+    n_pairs = n_diff = 0
+    err_max = 0.0
+    for (a, b), got in clip_calls:
+        want = rotated_intersection_area_pairs_plain(a, b)
+        err = (got - want).abs()
+        if (err > CLIP_TOL * (1 + want.abs())).any() or \
+                not torch.isfinite(got).all():
+            raise RuntimeError(f"eval: clip on {a.shape[0]} NMS pairs "
+                               f"disagrees, max|err| {err.max().item()}")
+        n_pairs += a.shape[0]
+        n_diff += int((got != want).sum())
+        err_max = max(err_max, err.max().item())
+    log(f"eval: the `eval` path's own inputs: {len(fusion_calls)} fusion "
+        f"forward calls bit-equal to plain ({'; '.join(shapes)}); "
+        f"{len(clip_calls)} clip calls, {n_pairs} NMS pairs, {n_diff} "
+        f"differ from plain at all, max|err| {err_max:.3g}")
+
+
+def eval_cli():
+    """Phase 12: the evaluation workflow through the CLI's `main()`s on
+    the card, in a KITTI tree written by the port. Returns the launches of
+    the `evaluate` run (the `eval` path)."""
+    import io
+    import shutil
+    import torch
+    from dcf_torch.cli import build_gt_db, demo, evaluate, train
+    from dcf_torch.data.png import read_png
+    from dcf_torch.data.synthetic import make_frame, write_kitti_tree
+    from dcf_torch.models import fusion as fusion_mod, head as head_mod
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion, fused_fusion_bwd
+    from dcf_torch.train import checkpoint as ckpt
+
+    def counts():
+        return {"fusion_fwd": fused_fusion.launches,
+                "fusion_bwd": fused_fusion_bwd.launches,
+                "clip_pairs": clip.launches}
+
+    def zero():
+        fused_fusion.launches = fused_fusion_bwd.launches = 0
+        clip.launches = 0
+
+    work = os.path.join(HERE, "_eval_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    root, db = os.path.join(work, "kitti"), os.path.join(work, "gt_db.pkl")
+    workdir, results = os.path.join(work, "run"), os.path.join(work, "res")
+    dev = ["--device", "cuda"]
+    try:
+        # 8 frames: one batch of the full config's 8 (the loader drops a
+        # short batch); the evaluation serves the first 6
+        ids = write_kitti_tree(root, num_frames=8, split="val")
+        decode_ms = []
+        for fid in ids:
+            t = time.perf_counter()
+            img = read_png(os.path.join(root, "training", "image_2",
+                                        fid + ".png"))
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+            if not np.array_equal(img, make_frame(fid, seed=int(fid)).image):
+                raise RuntimeError(f"eval: {fid}.png decodes to other pixels")
+        log(f"eval: KITTI tree of {len(ids)} frames, {img.shape} PNGs "
+            f"decoded by data/png.py equal to the frames, decode ms "
+            f"{[round(m, 3) for m in decode_ms]} (p50 "
+            f"{np.percentile(decode_ms, 50):.3f})")
+        build_gt_db.main(["--data-root", root, "--split", "val", "--out", db,
+                          "--min-points", "1"] + dev)
+        zero()
+        t = time.perf_counter()
+        train.main(["--config", "full", "--data-root", root, "--split",
+                    "val", "--workdir", workdir, "--steps", "3",
+                    "--gt-db", db] + dev)
+        train_s = time.perf_counter() - t
+        trained = counts()
+        if trained != {"fusion_fwd": 12, "fusion_bwd": 12, "clip_pairs": 3}:
+            raise RuntimeError(f"eval: cli.train launches {trained}, "
+                               f"expected 4 / 4 / 1 per step over 3 steps")
+        latest = ckpt.latest_checkpoint(os.path.join(workdir, "checkpoints"))
+        if not latest.endswith("ckpt_00000003.pt"):
+            raise RuntimeError(f"eval: cli.train left {latest}")
+
+        n_eval = 6
+        zero()
+        out = io.StringIO()
+        fusion_calls, clip_calls = [], []
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                _recorded(fusion_mod, "fused_fusion", fusion_calls), \
+                _recorded(head_mod, "rotated_intersection_area_pairs",
+                          clip_calls):
+            evaluate.main(["--workdir", workdir, "--data-root", root,
+                           "--split", "val", "--num-frames", str(n_eval),
+                           "--batch-size", "4", "--num-points", "0",
+                           "--results-dir", results] + dev)
+        eval_s = time.perf_counter() - t
+        launches = counts()
+        batches = -(-n_eval // 4)
+        expect = {"fusion_fwd": 4 * batches, "fusion_bwd": 0,
+                  "clip_pairs": batches}
+        if launches != expect:
+            raise RuntimeError(f"eval: launches {launches} != {expect}")
+        check_eval_kernels(fusion_calls, clip_calls, torch.device("cuda"))
+        del fusion_calls, clip_calls
+        text = out.getvalue()
+        aps = json.loads(text[text.index("{"):])
+        want = {f"{c}_{m}_{d}" for c in ("Car", "Pedestrian", "Cyclist")
+                for m in ("3d", "bev") for d in ("easy", "moderate", "hard")}
+        if set(aps) != want or not all(0.0 <= v <= 1.0 for v in aps.values()):
+            raise RuntimeError(f"eval: AP entries {sorted(aps)}")
+        files = sorted(os.listdir(results))
+        if files != [f"{fid}.txt" for fid in ids[:n_eval]]:
+            raise RuntimeError(f"eval: result files {files}")
+        n_lines = 0
+        for name in files:
+            with open(os.path.join(results, name)) as f:
+                for line in f:
+                    n_lines += 1
+                    if len(line.split()) != 16:
+                        raise RuntimeError(f"eval: {name}: {line!r}")
+        log(f"eval: cli.train full width, the config's B=8, 3 steps in "
+            f"{train_s:.3f} s, launches {trained}; cli.evaluate {n_eval} "
+            f"frames in {batches} batches of 4 (the last padded) in "
+            f"{eval_s:.3f} s, launches {launches}, {len(files)} result "
+            f"files with {n_lines} detections, AP (exact) "
+            f"{ {k: round(v, 4) for k, v in aps.items()} }")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            demo.main(["--config", "full", "--synthetic", "1"] + dev)
+        head = out.getvalue().splitlines()[0]
+        if not head.startswith("frame 000000:"):
+            raise RuntimeError(f"eval: cli.demo printed {head!r}")
+        log(f"eval: cli.demo --config full: {head}")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def check_eval_reference():
+    """`run_eval` of tiny_config in float32 on 4 seed-varied frames in
+    batches of 2, the same weights on the card (kernels) and on the CPU
+    (plain versions), TF32 off: the same detections (names exact, boxes
+    within phase 4's 1e-3, scores within 1e-4) and the same AP dict
+    (within 1e-9). The weights are first fitted to those frames on the
+    card (OVERFIT_STEPS steps on one batch of the 4), so that some AP
+    entries are above 0 and the comparison sees matches."""
+    import dataclasses
+    import torch
+    from dcf_torch.config import tiny_config
+    from dcf_torch.data.preprocess import frame_to_example, stack_examples
+    from dcf_torch.data.synthetic import SyntheticDataset
+    from dcf_torch.eval.evaluate import detect
+    from dcf_torch.eval.inference import batch_to_device, make_inference_fn
+    from dcf_torch.eval.kitti_eval import evaluate_annotations
+    from dcf_torch.models.anchors import anchor_pack
+    from dcf_torch.params import init_params
+    from dcf_torch.train.state import create_train_state
+    from dcf_torch.train.step import make_train_step
+    cfg = tiny_config(True)
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dtype="float32"),
+        train=dataclasses.replace(cfg.train, learning_rate=1e-3,
+                                  warmup_steps=50))
+    data = [SyntheticDataset(4, varied=True)[i] for i in range(4)]
+    fitted = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    state = create_train_state(cfg, fitted)
+    step = make_train_step(cfg, fitted, "cuda")
+    batch = batch_to_device(stack_examples(
+        [frame_to_example(f, cfg) for f in data]), "cuda")
+    pack = anchor_pack(cfg, "cuda")
+    t = time.perf_counter()
+    for _ in range(OVERFIT_STEPS):
+        state, metrics = step(state, batch, pack)
+    loss = float(metrics["loss"])
+    fit_s = time.perf_counter() - t
+    runs = {}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False     # a float32 reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = init_params(cfg, torch.Generator().manual_seed(1),
+                                device=dev)
+            model.load_state_dict(fitted.state_dict())
+            infer = make_inference_fn(cfg, model, device=dev)
+            gts, dets = detect(cfg, infer, data, batch_size=2)
+            runs[dev] = (dets, {p: evaluate_annotations(gts, dets,
+                                                        num_points=p)
+                                for p in (0, 40)})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    (want, ap_want), (got, ap_got) = runs["cpu"], runs["cuda"]
+    n = 0
+    for g, w in zip(got, want):
+        n += len(w)
+        if g.names != w.names or not (
+                np.allclose(g.boxes7, w.boxes7, rtol=0, atol=1e-3)
+                and np.allclose(g.scores, w.scores, rtol=0, atol=1e-4)):
+            raise RuntimeError("eval reference: card and CPU detections "
+                               "differ")
+    for p in ap_want:
+        if ap_got[p].keys() != ap_want[p].keys() or any(
+                abs(ap_got[p][k] - v) > 1e-9 for k, v in ap_want[p].items()):
+            raise RuntimeError(f"eval reference: AP (num_points {p}) card "
+                               f"{ap_got[p]} against CPU {ap_want[p]}")
+    above = {k: round(v, 4) for k, v in ap_want[0].items() if v > 0}
+    log(f"eval reference: tiny float32 fitted on the card for "
+        f"{OVERFIT_STEPS} steps ({fit_s:.1f} s, loss {loss:.4f}); run_eval "
+        f"of {len(want)} frames: {n} detections equal card vs CPU, AP "
+        f"dicts equal at num_points 0 and 40; entries above 0 (exact) "
+        f"{above}")
+
+
+def time_eval(device):
+    """Seconds per frame of `run_eval`'s two halves at full width:
+    `detect` (host preprocessing, inference in batches of 8, one sync per
+    batch; the synchronized inference calls timed apart; the frames are
+    made before, as a reader would have them) and the host
+    evaluation (`evaluate_annotations`: IoU and matching, R40), on 16
+    seed-varied frames, seeded random weights in bf16. The random head
+    passes every one of the 128 detections a frame (the heaviest input,
+    an upper bound); the evaluation is timed again on each frame's
+    highest-scoring TRAINED_DETS_PER_GT x its gt boxes, the traffic of a
+    trained model."""
+    import torch
+    from dcf_torch.config import multi_scale_config
+    from dcf_torch.data.synthetic import SyntheticDataset
+    from dcf_torch.eval.evaluate import detect
+    from dcf_torch.eval.inference import make_inference_fn
+    from dcf_torch.eval.kitti_eval import Annotation, evaluate_annotations
+    from dcf_torch.params import init_params
+    cfg = multi_scale_config()
+    model = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    infer = make_inference_fn(cfg, model, device=device)
+    data = [SyntheticDataset(16, varied=True)[i] for i in range(16)]
+    detect(cfg, infer, data[:8], batch_size=8)
+    infer_s = []
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = infer(batch)
+        torch.cuda.synchronize()
+        infer_s.append(time.perf_counter() - t)
+        return out
+
+    t = time.perf_counter()
+    gts, dets = detect(cfg, timed, data, batch_size=8)
+    detect_s = time.perf_counter() - t
+    trained = []
+    for g, d in zip(gts, dets):
+        keep = np.argsort(-d.scores, kind="stable")[
+            :round(TRAINED_DETS_PER_GT * len(g))]
+        trained.append(Annotation(
+            names=[d.names[i] for i in keep], boxes7=d.boxes7[keep],
+            bbox2d=d.bbox2d[keep], truncated=d.truncated[keep],
+            occluded=d.occluded[keep], alpha=d.alpha[keep],
+            scores=d.scores[keep]))
+    n, host_s, n_det = len(data), {}, {}
+    for key, ds in (("all", dets), ("trained", trained)):
+        t = time.perf_counter()
+        aps = evaluate_annotations(gts, ds, num_points=40)
+        host_s[key] = time.perf_counter() - t
+        n_det[key] = sum(len(d) for d in ds)
+        if len(aps) != 18 or n_det[key] == 0:
+            raise RuntimeError(f"eval timing: {len(aps)} AP entries, "
+                               f"{n_det[key]} detections")
+    log(f"eval timing: run_eval halves at full width, bf16, {n} frames at "
+        f"batch 8, {sum(len(g) for g in gts)} gt boxes: detect "
+        f"{detect_s / n:.4f} s a frame (inference {sum(infer_s) / n:.4f} s "
+        f"a frame, synchronized, {len(infer_s)} batches; host "
+        f"preprocessing and conversion the rest); host evaluation (IoU and "
+        f"matching, 3d + bev, R40) {host_s['all'] / n:.4f} s a frame with "
+        f"every detection ({n_det['all'] / n:.1f} a frame, the upper "
+        f"bound), {host_s['trained'] / n:.4f} s a frame with a trained "
+        f"model's count ({n_det['trained'] / n:.1f} a frame)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1160,6 +1503,9 @@ def main() -> int:
     kernels.append(mma)
     paths["int8_serving"] = serve_int8(device, bf16_p50)
     check_tiny_int8()
+    paths["eval"] = eval_cli()
+    check_eval_reference()
+    time_eval(device)
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

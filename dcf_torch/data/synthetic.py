@@ -1,8 +1,9 @@
 """Synthetic KITTI-format frames on the host (numpy).
 
-A copy of `dcf.data.synthetic.make_frame` / `make_varied_frame` and of
-`dcf.data.kitti.Frame`: the same numpy random calls in the same order,
-so a seed gives a bit-equal frame in both packages. Frames are a ground
+A copy of `dcf.data.synthetic.make_frame` / `make_varied_frame` /
+`write_kitti_tree` and of `dcf.data.kitti.Frame`: the same numpy random
+calls in the same order, so a seed gives a bit-equal frame in both
+packages. Frames are a ground
 plane plus box-shaped point clusters with matching labels, and an image
 with bright blobs where the objects project.
 """
@@ -10,6 +11,7 @@ with bright blobs where the objects project.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -200,3 +202,48 @@ class SyntheticDataset:
     def __getitem__(self, i: int) -> Frame:
         make = make_varied_frame if self.varied else make_frame
         return make(frame_id=f"{i:06d}", seed=i)
+
+
+def write_kitti_tree(root: str, num_frames: int = 3,
+                     split: str = "train") -> List[str]:
+    """Materialize synthetic frames (`make_frame(seed=i)`) as an on-disk
+    KITTI tree: the JAX package's bytes for the `.bin`, calib and label
+    files; the PNGs from `dcf_torch.data.png` (the same pixels, other
+    compressed bytes than PIL's)."""
+    # imported here: dcf_torch.data.kitti imports this module
+    from dcf_torch.data.kitti import box7_to_camera_label
+    from dcf_torch.data.png import write_png
+    subdir = os.path.join(root, "training")
+    for d in ("velodyne", "image_2", "calib", "label_2"):
+        os.makedirs(os.path.join(subdir, d), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    frame_ids = []
+    for i in range(num_frames):
+        frame_id = f"{i:06d}"
+        frame_ids.append(frame_id)
+        frame = make_frame(frame_id, seed=i)
+        frame.points.tofile(
+            os.path.join(subdir, "velodyne", frame_id + ".bin"))
+        write_png(os.path.join(subdir, "image_2", frame_id + ".png"),
+                  frame.image)
+        calib = frame.calib
+        with open(os.path.join(subdir, "calib", frame_id + ".txt"), "w") as f:
+            p2 = " ".join(f"{v:.12e}" for v in calib.P2.reshape(-1))
+            r0 = " ".join(f"{v:.12e}" for v in calib.R0[:3, :3].reshape(-1))
+            tr = " ".join(f"{v:.12e}" for v in calib.V2C[:3].reshape(-1))
+            f.write(f"P2: {p2}\nR0_rect: {r0}\nTr_velo_to_cam: {tr}\n")
+        loc, dims_hwl, ry = box7_to_camera_label(frame.boxes, calib)
+        with open(os.path.join(subdir, "label_2", frame_id + ".txt"),
+                  "w") as f:
+            for k, name in enumerate(frame.names):
+                b = frame.bbox2d[k]
+                f.write(
+                    f"{name} 0.00 0 0.0 "
+                    f"{b[0]:.2f} {b[1]:.2f} {b[2]:.2f} {b[3]:.2f} "
+                    f"{dims_hwl[k, 0]:.2f} {dims_hwl[k, 1]:.2f} "
+                    f"{dims_hwl[k, 2]:.2f} "
+                    f"{loc[k, 0]:.2f} {loc[k, 1]:.2f} {loc[k, 2]:.2f} "
+                    f"{ry[k]:.2f}\n")
+    with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+        f.write("\n".join(frame_ids) + "\n")
+    return frame_ids

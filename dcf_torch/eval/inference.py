@@ -27,6 +27,15 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
             for k, v in batch.items()}
 
 
+def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Detections (or any tensors) to numpy, with one wait for the
+    device."""
+    host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+    if any(v.is_cuda for v in out.values()):
+        torch.cuda.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
 def make_inference_fn(cfg: Config, model: ContFuseDetector, device="cuda"
                       ) -> Callable[[Dict[str, np.ndarray]],
                                     Dict[str, torch.Tensor]]:

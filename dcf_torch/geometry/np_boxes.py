@@ -103,3 +103,55 @@ def points_in_boxes3d(points: np.ndarray, boxes7: np.ndarray) -> np.ndarray:
     z_ok = ((z >= boxes7[None, :, 2] - boxes7[None, :, 5] * 0.5)
             & (z <= boxes7[None, :, 2] + boxes7[None, :, 5] * 0.5))
     return bev & z_ok
+
+
+def boxes3d_corners(boxes7: np.ndarray) -> np.ndarray:
+    """All 8 corners of 3D boxes: [N, 7] -> [N, 8, 3] float32, bottom face
+    CCW (0-3) then top face CCW (4-7); a numpy copy of
+    `dcf.geometry.boxes.boxes3d_corners`, computed in float32 as that
+    jnp function computes it."""
+    b = np.asarray(boxes7, np.float32).reshape(-1, 7)
+    x, y, dx, dy, yaw = (b[:, i, None] for i in (0, 1, 3, 4, 6))
+    cx = np.concatenate([dx, -dx, -dx, dx], axis=-1) * np.float32(0.5)
+    cy = np.concatenate([dy, dy, -dy, -dy], axis=-1) * np.float32(0.5)
+    c, s = np.cos(yaw), np.sin(yaw)
+    bev = np.stack([cx * c - cy * s + x, cx * s + cy * c + y], axis=-1)
+    z_lo = b[:, 2] - np.float32(0.5) * b[:, 5]
+    z_hi = b[:, 2] + np.float32(0.5) * b[:, 5]
+    lo = np.concatenate([bev, np.broadcast_to(z_lo[:, None, None],
+                                              (len(b), 4, 1))], axis=-1)
+    hi = np.concatenate([bev, np.broadcast_to(z_hi[:, None, None],
+                                              (len(b), 4, 1))], axis=-1)
+    return np.concatenate([lo, hi], axis=-2)
+
+
+def rotated_iou_bev(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """Pairwise rotated BEV IoU in float64: [N, 5] x [M, 5] -> [N, M].
+    The evaluator's IoU: it stays on the host in float64, where an IoU
+    near a 0.7 threshold is decided as the reference decides it."""
+    boxes_a = np.asarray(boxes_a, np.float64).reshape(-1, 5)
+    boxes_b = np.asarray(boxes_b, np.float64).reshape(-1, 5)
+    out = np.zeros((len(boxes_a), len(boxes_b)))
+    for i, a in enumerate(boxes_a):
+        for j, b in enumerate(boxes_b):
+            inter = rotated_intersection_area(a, b)
+            union = a[2] * a[3] + b[2] * b[3] - inter
+            out[i, j] = inter / max(union, 1e-9)
+    return out
+
+
+def iou_3d(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """Pairwise 3D IoU of box7s in float64: [N, 7] x [M, 7] -> [N, M]."""
+    boxes_a = np.asarray(boxes_a, np.float64).reshape(-1, 7)
+    boxes_b = np.asarray(boxes_b, np.float64).reshape(-1, 7)
+    out = np.zeros((len(boxes_a), len(boxes_b)))
+    for i, a in enumerate(boxes_a):
+        for j, b in enumerate(boxes_b):
+            inter_bev = rotated_intersection_area(
+                a[[0, 1, 3, 4, 6]], b[[0, 1, 3, 4, 6]])
+            lo = max(a[2] - a[5] / 2, b[2] - b[5] / 2)
+            hi = min(a[2] + a[5] / 2, b[2] + b[5] / 2)
+            inter = inter_bev * max(hi - lo, 0.0)
+            union = a[3] * a[4] * a[5] + b[3] * b[4] * b[5] - inter
+            out[i, j] = inter / max(union, 1e-9)
+    return out
