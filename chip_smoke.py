@@ -86,7 +86,27 @@ Phases, each printed on its own line with the seconds elapsed:
      same detections and AP dict; then seconds per frame of `run_eval`
      at full width on 16 synthetic frames at batch 8, split into
      inference and host evaluation, the latter with every detection of
-     the random head (128 a frame) and with a trained model's count.
+     the random head (128 a frame) and with a trained model's count;
+ 13. the compiled host core (`dcf_torch.native`, `kitti_io.cpp` built by
+     g++ into `dcf_torch/_build/` beside phase 2's nvcc processes, since
+     every phase's frames go through it; the compiler's version line, the
+     flags, the seconds and the stamped library logged): on a 4-frame
+     375x1242 KITTI tree (`_host_smoke/`, removed after) every entry point
+     held to its plain numpy version, bit-equal (the rotated IoUs within
+     1e-9): the row unfilter and the whole decode on each frame's PNG and
+     on frame 0's image written with every row None, Sub, Up, Average and
+     Paeth; the crop on each frame and on a 120,000-point sweep; the
+     resize with the letterbox and s2d(4), the fine-grid sort, the
+     perspective divide and the fusion ranks of each frame at the
+     config's size; the IoUs and the matching statistics (41 thresholds,
+     every class, with and without alphas) on phase 12's detections at
+     128 a frame. Then the compiled and plain host ms of each, beside the
+     card's name and power limit, `frame_to_example` ms a frame, phase
+     12's `run_eval` readings (host preprocessing, host evaluation at 128
+     detections and at the trained count), the loader's ms per batch of 2
+     (`tools/profile_training.py`'s reading), and the 4 frames served
+     through the compiled host path at full width in bf16: finite, 4
+     fusion and 1 clip launches a frame (the `host_core` path).
 
 Then one JSON line describing every kernel (launches: the sum over the
 paths, and per path), and last the line `{"ok": true, "device": {...}}`.
@@ -102,6 +122,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1444,6 +1465,11 @@ def time_eval(device):
         if len(aps) != 18 or n_det[key] == 0:
             raise RuntimeError(f"eval timing: {len(aps)} AP entries, "
                                f"{n_det[key]} detections")
+    readings = {"detect_s": detect_s / n, "infer_s": sum(infer_s) / n,
+                "host_all_s": host_s["all"] / n,
+                "host_trained_s": host_s["trained"] / n,
+                "dets_all": n_det["all"] / n,
+                "dets_trained": n_det["trained"] / n}
     log(f"eval timing: run_eval halves at full width, bf16, {n} frames at "
         f"batch 8, {sum(len(g) for g in gts)} gt boxes: detect "
         f"{detect_s / n:.4f} s a frame (inference {sum(infer_s) / n:.4f} s "
@@ -1453,6 +1479,266 @@ def time_eval(device):
         f"every detection ({n_det['all'] / n:.1f} a frame, the upper "
         f"bound), {host_s['trained'] / n:.4f} s a frame with a trained "
         f"model's count ({n_det['trained'] / n:.1f} a frame)")
+    return readings, gts, dets
+
+
+def _p50_ms(fn, reps: int):
+    """(p50 host ms of `reps` calls of fn, the last result)."""
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.percentile(ms, 50)), out
+
+
+def _filtered_png(image, ftype: int) -> bytes:
+    """An 8-bit RGB PNG of `image` with every row filtered by `ftype`
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); the port's encoder
+    writes Sub only."""
+    import struct
+    import zlib
+    from dcf_torch.data import png
+    H, W, C = image.shape
+    x = image.reshape(H, W * C).astype(np.int32)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, C:], b[1:], c[1:, C:] = x[:, :-C], x[:-1], x[:-1, :-C]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = (0 * x, a, b, (a + b) >> 1,
+            np.where((pa <= pb) & (pa <= pc), a,
+                     np.where(pb <= pc, b, c)))[ftype]
+    rows = np.concatenate([np.full((H, 1), ftype, np.uint8),
+                           ((x - pred) % 256).astype(np.uint8)], axis=1)
+    return (png._SIGNATURE
+            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0,
+                                              0))
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + png._chunk(b"IEND", b""))
+
+
+def host_core(device, smi: str, build_log: str, eval_readings, gts, dets):
+    """Phase 13: the compiled host core (`dcf_torch.native`) on the card's
+    host: every entry point against its plain version on a KITTI tree's
+    frames and phase 12's detections, their times, the host readings of
+    a frame's path, and 4 frames of the tree served through the kernels.
+    Returns the launches of the serving run."""
+    import shutil
+    import torch
+    from dcf_torch import native
+    from dcf_torch.config import multi_scale_config
+    from dcf_torch.data import png, preprocess as pre
+    from dcf_torch.data.kitti import KittiDataset
+    from dcf_torch.data.synthetic import write_kitti_tree
+    from dcf_torch.data.voxelize import crop_and_pad_plain
+    from dcf_torch.eval import kitti_eval as ke
+    from dcf_torch.eval.inference import make_inference_fn
+    from dcf_torch.geometry import np_boxes
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion, fused_fusion_bwd
+    from dcf_torch.params import init_params
+    from dcf_torch.tools.profile_training import load_batches
+
+    log(f"host core: {build_log}")
+    cfg = multi_scale_config()
+    vox = cfg.voxel
+    roi = (vox.x_min, vox.x_max, vox.y_min, vox.y_max, vox.z_min, vox.z_max)
+    ms = {}                      # (entry point, unit) -> ([compiled], [plain])
+    checked = {}
+
+    def hold(name, unit, compiled, plain, same, reps=(9, 3)):
+        """Both versions timed (p50 over reps); raise unless same()."""
+        c_ms, got = _p50_ms(compiled, reps[0])
+        p_ms, want = _p50_ms(plain, reps[1])
+        if not same(got, want):
+            raise RuntimeError(f"host core: {name} differs from its plain "
+                               f"version")
+        c, p = ms.setdefault((name, unit), ([], []))
+        c.append(c_ms)
+        p.append(p_ms)
+        checked[name] = checked.get(name, 0) + 1
+        return got
+
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(map(equal, a, b))
+        return np.array_equal(a, b)
+
+    def within(tol):
+        return lambda a, b: a.shape == b.shape and (
+            a.size == 0 or float(np.abs(a - b).max()) <= tol)
+
+    work = os.path.join(HERE, "_host_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    try:
+        ids = write_kitti_tree(root, num_frames=4, split="val")
+        ds = KittiDataset(root, "val")
+        # the PNGs: each frame's file (Sub rows, the port's encoder) and
+        # frame 0's image with every row None, Sub, Up, Average, Paeth
+        files = []
+        for fid in ids:
+            with open(os.path.join(root, "training", "image_2",
+                                   fid + ".png"), "rb") as f:
+                files.append(f.read())
+        image0 = png.read_png(os.path.join(root, "training", "image_2",
+                                           ids[0] + ".png"))
+        files += [_filtered_png(image0, t) for t in range(5)]
+        for k, data in enumerate(files):
+            rows, W, C = png._filtered_rows(data)
+            H = len(rows)
+            hold("png_unfilter", f"a {H}x{W} image",
+                 lambda: native.png_unfilter(rows, C).reshape(H, W, C),
+                 lambda: png._unfilter(rows[:, 1:].reshape(H, W, C),
+                                       rows[:, 0]), equal, reps=(9, 1))
+            got = hold("read_png (inflate + unfilter)", f"a {H}x{W} file",
+                       lambda: png.decode_png(data),
+                       lambda: png.decode_png_plain(data), equal,
+                       reps=(9, 1))
+            if k >= len(ids) and not np.array_equal(got, image0):
+                raise RuntimeError(f"host core: filter {k - len(ids)} "
+                                   f"file decodes to other pixels")
+
+        # a frame's path, at the config's full size
+        frames = [ds[i] for i in range(len(ds))]
+        rng = np.random.default_rng(13)
+        sweep = np.concatenate([rng.uniform(-80, 80, (120_000, 2)),
+                                rng.uniform(-3, 2, (120_000, 1)),
+                                rng.uniform(0, 1, (120_000, 1))],
+                               axis=1).astype(np.float32)
+        for cloud in [f.points for f in frames] + [sweep]:
+            out, mask = hold(
+                "crop_pad", f"{len(cloud)} points",
+                lambda: native.crop_pad(cloud, roi, vox.max_points),
+                lambda: crop_and_pad_plain(cloud, vox), equal)
+            if mask.all():
+                raise RuntimeError("host core: the crop overflowed")
+        def prepare_plain(image):
+            full, scale = pre.prepare_image(image, cfg)
+            return pre.s2d_image(full), scale
+
+        for f in frames:
+            hold("image_resize_s2d", "a 375x1242 frame",
+                 lambda: pre.prepare_image_s2d(f.image, cfg),
+                 lambda: prepare_plain(f.image), equal)
+            pts, mask = native.crop_pad(f.points, roi, vox.max_points)
+            pts, mask = hold(
+                "sort_points_fine", f"{vox.max_points} points",
+                lambda: pre.sort_points_host(pts, mask, cfg),
+                lambda: pre.sort_points_host_plain(pts, mask, cfg), equal)
+            v2i = f.calib.velo_to_image_matrix.copy()
+            v2i[:2] *= pre._fit_size(f.image.shape, cfg)[2]
+            m = v2i.astype(np.float32)
+            uvw = pts[:, :3] @ m[:, :3].T + m[:, 3]
+            uvz = hold("uvw_to_uvz", f"{vox.max_points} points",
+                       lambda: native.uvw_to_uvz(uvw),
+                       lambda: pre.uvw_to_uvz_plain(uvw), equal)
+            hold("fusion_ranks", f"{vox.max_points} points x 4 scales",
+                 lambda: native.fusion_ranks(
+                     pts, mask, uvz, cfg.backbone.fusion_strides, vox.x_min,
+                     vox.y_min, vox.voxel_size, vox.grid_x, vox.grid_y,
+                     cfg.image.height, cfg.image.width),
+                 lambda: pre.fusion_ranks_plain(pts, mask, uvz, cfg), equal)
+
+        # evaluation, on phase 12's detections (128 a frame)
+        for g, d in zip(gts, dets):
+            if not len(d) or not len(g):
+                continue
+            bev = [0, 1, 3, 4, 6]
+            bev_d, bev_g = d.boxes7[:, bev], g.boxes7[:, bev]
+            unit = f"a frame, {len(d)} detections"
+            bev = hold("rotated_iou_bev", unit,
+                       lambda: native.rotated_iou_bev(bev_d, bev_g),
+                       lambda: np_boxes.rotated_iou_bev(bev_d, bev_g),
+                       within(1e-9), reps=(9, 1))
+            iou = hold("iou_3d", unit,
+                       lambda: native.iou_3d(d.boxes7, g.boxes7),
+                       lambda: np_boxes.iou_3d(d.boxes7, g.boxes7),
+                       within(1e-9), reps=(9, 1))
+            thr = np.quantile(d.scores, np.linspace(1, 0, 41))
+            for cls in ke.CLASS_NAMES:
+                _, ig_gt, ig_det, _ = ke._clean_data(g, d, cls, 1)
+                for overlaps, alphas in ((iou, None), (bev, (g.alpha,
+                                                             d.alpha))):
+                    ga, da = alphas or (None, None)
+                    hold("eval_statistics", f"a frame and cell, "
+                         f"{len(thr)} thresholds",
+                         lambda: native.eval_statistics(
+                             overlaps, d.scores, ig_gt, ig_det, None, 0.7,
+                             thr, ga, da),
+                         lambda: tuple(np.array(v) for v in zip(*[
+                             ke._frame_statistics(
+                                 overlaps, d.scores, ig_gt, ig_det, None,
+                                 0.7, t, gt_alphas=ga, dt_alphas=da)
+                             for t in thr])), equal, reps=(9, 1))
+        log(f"host core: compiled against plain, bit-equal (the IoUs "
+            f"within 1e-9): " + ", ".join(f"{k} {v}" for k, v in
+                                          checked.items()) + " inputs")
+
+        # a frame's host readings
+        f2e_ms, _ = _p50_ms(lambda: [pre.frame_to_example(f, cfg)
+                                     for f in frames], 5)
+        _, _, load_ms, workers = load_batches(9)
+        log(f"host core times (card {smi}; host p50 ms, compiled / plain):")
+        for (name, unit), (c, p) in ms.items():
+            print(f"    {name:30s} {np.median(c):10.4f} / {np.median(p):10.4f}"
+                  f" ms  ({unit}; x{np.median(p) / np.median(c):.1f})",
+                  flush=True)
+        log(f"host core: frame_to_example {f2e_ms / len(frames):.4f} ms a "
+            f"375x1242 frame; run_eval (phase 12, bf16, batch 8): detect "
+            f"{eval_readings['detect_s']:.4f} s a frame, of which inference "
+            f"{eval_readings['infer_s']:.4f} s and host preprocessing "
+            f"{eval_readings['detect_s'] - eval_readings['infer_s']:.4f} s; "
+            f"host evaluation {eval_readings['host_all_s']:.4f} s a frame at "
+            f"{eval_readings['dets_all']:.1f} detections, "
+            f"{eval_readings['host_trained_s']:.4f} s at "
+            f"{eval_readings['dets_trained']:.1f}; the loader "
+            f"{load_ms:.3f} ms per batch of 2 ({workers} workers, "
+            f"profile_training's reading)")
+
+        # the tree's frames served through the kernels
+        model = init_params(cfg, torch.Generator().manual_seed(0),
+                            device=device)
+        infer = make_inference_fn(cfg, model, device=device)
+        infer(pre.stack_examples([pre.frame_to_example(frames[0], cfg)]))
+        torch.cuda.synchronize()
+        fused_fusion.launches = fused_fusion_bwd.launches = 0
+        clip.launches = 0
+        n_valid = 0
+        for f in frames:
+            dets_f = infer(pre.stack_examples([pre.frame_to_example(f, cfg)]))
+            if not all(torch.isfinite(dets_f[k]).all()
+                       for k in ("boxes", "scores")):
+                raise RuntimeError("host core: non-finite detections")
+            n_valid += int(dets_f["valid"].sum())
+        torch.cuda.synchronize()
+        launches = {"fusion_fwd": fused_fusion.launches,
+                    "fusion_bwd": fused_fusion_bwd.launches,
+                    "clip_pairs": clip.launches}
+        n = len(frames)
+        expect = {"fusion_fwd": 4 * n, "fusion_bwd": 0, "clip_pairs": n}
+        if launches != expect:
+            raise RuntimeError(f"host core: serving launches {launches} != "
+                               f"{expect}")
+        log(f"host core: {n} frames of the tree served through the compiled "
+            f"host path, multi_scale_config bf16 at B=1: finite, {n_valid} "
+            f"valid detections, launches {launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def build_host_core() -> str:
+    """Phase 13's build (started with phase 2's, since every phase's
+    frames go through it): the host core compiled by g++ into
+    `dcf_torch/_build/`, then loaded. Returns what it logs."""
+    from dcf_torch import native
+    t = time.time()
+    path = native.build()
+    secs = time.time() - t
+    native.library()
+    return (f"g++ ({native.compiler_version()}) {' '.join(native.FLAGS)}: "
+            f"{secs:.1f} s, {os.path.relpath(path, HERE)}")
 
 
 def main() -> int:
@@ -1480,10 +1766,14 @@ def main() -> int:
         f"device(s)")
 
     t = time.time()
-    ptxas = _cuda.build(verbose=True)
-    _cuda.library()
-    log(f"build: nvcc over {len(_cuda.sources())} sources in "
-        f"{time.time() - t:.1f} s")
+    with ThreadPoolExecutor(1) as pool:      # g++ beside the nvcc processes
+        host = pool.submit(build_host_core)
+        ptxas = _cuda.build(verbose=True)
+        _cuda.library()
+        log(f"build: nvcc over {len(_cuda.sources())} sources in "
+            f"{time.time() - t:.1f} s")
+        host_build = host.result()
+    log(f"build: host core {host_build}")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("    " + line.strip(), flush=True)
@@ -1505,7 +1795,9 @@ def main() -> int:
     check_tiny_int8()
     paths["eval"] = eval_cli()
     check_eval_reference()
-    time_eval(device)
+    readings, gts, dets = time_eval(device)
+    paths["host_core"] = host_core(device, smi, host_build, readings, gts,
+                                   dets)
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

@@ -1,5 +1,6 @@
-"""PNG files on the host with the standard library's `zlib` and numpy:
-the port's stand-in for PIL, which the card's machine does not have.
+"""PNG files on the host with the standard library's `zlib`, numpy and
+the compiled row unfilter of `dcf_torch.native`: the port's stand-in for
+PIL, which the card's machine does not have.
 
 `read_png` decodes 8-bit, non-interlaced files of colour types 0, 2, 4
 and 6 (gray, RGB, gray + alpha, RGBA) to `uint8 [H, W, 3]` RGB, as
@@ -15,6 +16,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from dcf_torch import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel (8-bit: bytes per pixel)
@@ -48,7 +51,9 @@ def _chunks(data: bytes):
 
 def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     """Undo the per-row filters of `raw [H, W, C]` (filter bytes removed),
-    `ftype [H]` in 0-4 (None, Sub, Up, Average, Paeth).
+    `ftype [H]` in 0-4 (None, Sub, Up, Average, Paeth): the plain version
+    of the compiled row unfilter (`native.png_unfilter`) that
+    `decode_png` runs.
 
     A byte depends on its left neighbour (a), the byte above (b) and the
     one above-left (c), so the pixels of one anti-diagonal y + x = t are
@@ -80,8 +85,9 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return s[y + x + 2, y + 1].astype(np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, 3] RGB (see the module docstring)."""
+def _filtered_rows(data: bytes):
+    """The checked, inflated rows of a PNG file: (rows [H, 1 + W * C]
+    uint8, each a filter byte in 0-4 and the row's bytes, W, C)."""
     header, idat = None, []
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
@@ -120,10 +126,28 @@ def decode_png(data: bytes) -> np.ndarray:
     ftype = raw[:, 0]
     if (ftype > 4).any():
         raise ValueError(f"PNG row filter {int(ftype.max())} is not 0-4")
-    pix = _unfilter(raw[:, 1:].reshape(height, width, C), ftype)
-    if C <= 2:                      # gray (+ alpha): repeat the gray
+    return raw, width, C
+
+
+def _rgb(pix: np.ndarray) -> np.ndarray:
+    if pix.shape[2] <= 2:           # gray (+ alpha): repeat the gray
         return np.repeat(pix[..., :1], 3, axis=-1)
     return np.ascontiguousarray(pix[..., :3])
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] RGB (see the module docstring); the
+    row filters are undone by the compiled `native.png_unfilter`."""
+    rows, width, C = _filtered_rows(data)
+    return _rgb(native.png_unfilter(rows, C).reshape(len(rows), width, C))
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
+    """`decode_png` with the numpy wavefront `_unfilter`, its plain
+    version."""
+    rows, width, C = _filtered_rows(data)
+    return _rgb(_unfilter(rows[:, 1:].reshape(len(rows), width, C),
+                          rows[:, 0]))
 
 
 def read_png(path: str) -> np.ndarray:

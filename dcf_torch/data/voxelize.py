@@ -1,7 +1,8 @@
 """BEV pseudo-image rasterization.
 
-Host side, `crop_and_pad` (numpy) turns a variable-N cloud into the
-static `(points[max_points, 4], mask[max_points])` pair. Device side,
+Host side, `crop_and_pad` (compiled, `dcf_torch.native`) turns a
+variable-N cloud into the static `(points[max_points, 4],
+mask[max_points])` pair. Device side,
 `rasterize_bev_s2d` (torch scatters) emits the PIXOR-style pseudo-image,
 one binary-occupancy channel per height slice plus mean intensity,
 directly in the space-to-depth(2) layout the first BEV stage consumes.
@@ -15,13 +16,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dcf_torch import native
 from dcf_torch.config import VoxelConfig
 
 
 def crop_and_pad(points: np.ndarray, cfg: VoxelConfig,
                  shuffle: bool = False, seed: int = 0
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side ROI crop + static-shape padding.
+    """Host-side ROI crop + static-shape padding, compiled
+    (`native.crop_pad`) unless `shuffle` or the crop fills every slot, as
+    in the reference; the numpy path is `crop_and_pad_plain`.
 
     Args:
       points: [N, 4] float32 (x, y, z, intensity).
@@ -31,6 +35,24 @@ def crop_and_pad(points: np.ndarray, cfg: VoxelConfig,
       dropped; clouds larger than max_points are subsampled (deterministic
       unless shuffle), smaller ones zero-padded with mask False.
     """
+    points = np.asarray(points, np.float32).reshape(-1, 4)
+    if not shuffle:
+        out, mask = native.crop_pad(
+            points, (cfg.x_min, cfg.x_max, cfg.y_min, cfg.y_max, cfg.z_min,
+                     cfg.z_max), cfg.max_points)
+        if not mask.all():          # no overflow: nothing to subsample
+            return out, mask
+    return crop_and_pad_plain(points, cfg, shuffle, seed)
+
+
+def crop_and_pad_plain(points: np.ndarray, cfg: VoxelConfig,
+                       shuffle: bool = False, seed: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """`crop_and_pad` in numpy, and the path of a crop that fills every
+    slot (the subsampling policy lives here). Compares float32 points
+    with the ROI bounds in float32, where the compiled crop compares in
+    float64: the two differ only for a point that equals a bound's
+    float32 rounding when that rounding is below the bound."""
     points = np.asarray(points, np.float32).reshape(-1, 4)
     keep = ((points[:, 0] >= cfg.x_min) & (points[:, 0] < cfg.x_max)
             & (points[:, 1] >= cfg.y_min) & (points[:, 1] < cfg.y_max)

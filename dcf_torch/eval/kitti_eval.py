@@ -31,8 +31,11 @@ Devkit semantics:
   - AOS (orientation similarity) for the bbox metric when alphas are
     present.
 
-The matching runs once per score threshold in Python (`_eval_cell`), as
-`dcf.native.eval_statistics` does without its C++ library.
+The rotated IoUs and the matching at every score threshold of a frame
+run in the compiled host core (`dcf_torch.native`: `rotated_iou_bev`,
+`iou_3d`, one `eval_statistics` call per frame and cell), as they run in
+the reference's C++. Their plain versions stay in numpy and Python:
+`geometry.np_boxes`'s IoUs and `_frame_statistics` here.
 """
 
 from __future__ import annotations
@@ -42,9 +45,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from dcf_torch import native
 from dcf_torch.data.kitti import box7_to_camera_label
-from dcf_torch.geometry.np_boxes import (boxes3d_corners, iou_3d,
-                                         rotated_iou_bev)
+from dcf_torch.geometry.np_boxes import boxes3d_corners
 
 CLASS_NAMES = ("Car", "Pedestrian", "Cyclist")
 DIFFICULTIES = ("easy", "moderate", "hard")
@@ -368,16 +371,15 @@ def _eval_cell(frames, cls_name: str, difficulty: int, metric: str,
         aos_now = (compute_aos and metric == "bbox"
                    and f["gt"].alpha is not None
                    and f["det"].alpha is not None)
-        for k, thr in enumerate(thresholds):
-            stats = _frame_statistics(
-                f["overlaps"], f["det"].scores, ig_gt, ig_det, dc_overlap,
-                min_overlap, thr,
-                gt_alphas=f["gt"].alpha if aos_now else None,
-                dt_alphas=f["det"].alpha if aos_now else None)
-            tp[k] += stats[0]
-            fp[k] += stats[1]
-            fn[k] += stats[2]
-            sim[k] += stats[3]
+        stats = native.eval_statistics(
+            f["overlaps"], f["det"].scores, ig_gt, ig_det, dc_overlap,
+            min_overlap, thresholds,
+            gt_alphas=f["gt"].alpha if aos_now else None,
+            dt_alphas=f["det"].alpha if aos_now else None)
+        tp += stats[0]
+        fp += stats[1]
+        fn += stats[2]
+        sim += stats[3]
 
     precision = tp / np.maximum(tp + fp, 1e-12)
     orientation = sim / np.maximum(tp + fp, 1e-12)
@@ -431,12 +433,12 @@ def evaluate_annotations(gt_annos: Sequence[Annotation],
                 dc_overlap = image_box_overlap(det.bbox2d, gt.bbox2d,
                                                criterion=0)
             elif metric == "bev":
-                overlaps = rotated_iou_bev(
+                overlaps = native.rotated_iou_bev(
                     det.boxes7[:, [0, 1, 3, 4, 6]],
                     gt.boxes7[:, [0, 1, 3, 4, 6]])
                 dc_overlap = None
             elif metric == "3d":
-                overlaps = iou_3d(det.boxes7, gt.boxes7)
+                overlaps = native.iou_3d(det.boxes7, gt.boxes7)
                 dc_overlap = None
             else:
                 raise ValueError(f"unknown metric {metric!r}")

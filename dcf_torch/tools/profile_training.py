@@ -49,12 +49,10 @@ def _run(step, state, batches, pack):
     return host
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=8)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_training: needs a CUDA device")
+def load_batches(n: int):
+    """`n` batches of 2 from the augmenting `Loader` over 16 seed-varied
+    frames (gt-sampling from a database of 4), consumed back to back:
+    (config, batches, host ms per batch, the loader's worker count)."""
     cfg = train_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, batch_size=2))
@@ -63,9 +61,19 @@ def main() -> None:
         [data[i] for i in range(4)]), seed=cfg.train.seed)
     stream = infinite_batches(loader)
     t = time.perf_counter()
-    host_batches = list(itertools.islice(stream, args.steps + 1))
+    batches = list(itertools.islice(stream, n))
     stream.close()
-    load_ms = (time.perf_counter() - t) * 1e3 / len(host_batches)
+    ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    return cfg, batches, ms, loader.num_workers
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_training: needs a CUDA device")
+    cfg, host_batches, load_ms, workers = load_batches(args.steps + 1)
 
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     state = create_train_state(cfg, model)
@@ -82,7 +90,7 @@ def main() -> None:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; multi_scale_config, "
           f"{cfg.backbone.dtype}, B=2; loader {load_ms:.3f} ms per batch "
-          f"(host, {loader.num_workers} workers); step alone: p50 "
+          f"(host, {workers} workers); step alone: p50 "
           f"{np.percentile(host, 50):.3f} ms, p95 "
           f"{np.percentile(host, 95):.3f} ms over {n} steps (no profiler)")
 
