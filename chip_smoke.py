@@ -81,7 +81,10 @@ Phases, each printed on its own line with the seconds elapsed:
      clip call of that run, recorded with its inputs, held to its plain
      version as phase 3 holds it (the forward bit-equal at B=4, the clip
      on the batch's 4 x 3 x 256 x 256 NMS pairs); `demo --config full
-     --synthetic 1`; `run_eval` of `tiny_config` in float32 (TF32 off)
+     --synthetic 1 --viz PNG` (the PNG decoded back by `data/png.py`: its
+     size, and red on the top detection's outline); `train --config tiny
+     --debug --steps 1` (anomaly detection and finite checks on the
+     card); `run_eval` of `tiny_config` in float32 (TF32 off)
      on 4 frames on the card and on the CPU with the same weights: the
      same detections and AP dict; then seconds per frame of `run_eval`
      at full width on 16 synthetic frames at batch 8, split into
@@ -106,7 +109,24 @@ Phases, each printed on its own line with the seconds elapsed:
      detections and at the trained count), the loader's ms per batch of 2
      (`tools/profile_training.py`'s reading), and the 4 frames served
      through the compiled host path at full width in bf16: finite, 4
-     fusion and 1 clip launches a frame (the `host_core` path).
+     fusion and 1 clip launches a frame (the `host_core` path);
+ 14. data parallel: two ranks of `tiny_config` in float32 (TF32 off) on
+     the one card through gloo, in processes of their own
+     (`chip_smoke.py --data-parallel-rank ...`; NCCL needs a card per
+     rank and is not exercised), 3 steps on two frames whose num_pos
+     differ (checked on the card), one a rank: the ranks end bit-equal;
+     their logged loss and grad_norm, parameters and EMA against a
+     single-process B=2 run on the card within DP_METRIC_RTOL / DP_ATOL
+     (with DP_NEAR_SHARE); rank 0 alone wrote the checkpoint and
+     metrics; each rank's 4 / 4 / 1 launches a step (the `data_parallel`
+     path);
+ 15. the train-and-evaluate workflow (`dcf_torch.tools.generalization`)
+     at full width in bf16: 20 steps on 8 train frames with EMA and
+     gt-sampling, probe evaluations every 10 steps on 2 frames, 4 val
+     frames, the int8 evaluation, in a workdir removed after: both JSON
+     files with the JAX script's keys and APs in [0, 1], and the
+     launches of every training step, served batch and calibration
+     batch (the `generalization` path).
 
 Then one JSON line describing every kernel (launches: the sum over the
 paths, and per path), and last the line `{"ok": true, "device": {...}}`.
@@ -126,14 +146,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+# H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel
+from dcf_torch.utils.flops import H100_HBM_BYTES_PER_S, H100_PEAK_F32_FLOPS
 from dcf_torch.utils.timing import cuda_ms, graph_ms
 
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12            # outside the tensor cores
 
 CLIP_TOL = 1e-4                   # x (1 + area): cosf/sinf may differ by an ulp
 TINY_ATOL, TINY_RTOL = 2e-4, 2e-3  # x max|pred|; tests/test_oracle_e2e.py
@@ -152,6 +170,17 @@ OVERFIT_STEPS = 100
 # (runs_r5/gen_r5, ckpt_00008000) on the 16 val frames: 111 for 69 gt
 # boxes in float32 on the CPU (tests/test_torch_ap.py prints them)
 TRAINED_DETS_PER_GT = 111 / 69
+# phase 14: two ranks against one process at the same global batch, in
+# float32 with TF32 off (tests/test_torch_parallel.py holds the CPU run
+# to the same bounds): the logged loss and grad_norm within DP_METRIC_RTOL
+# (the card sums in other orders than the CPU: cuDNN picks its algorithm
+# by batch size, and the gathers' backward adds with atomics); the
+# parameters and EMA within DP_ATOL (tests/test_multihost.py's), with at
+# most DP_NEAR_SHARE of their elements more than DP_NEAR apart (AdamW
+# turns noise on gradients near its eps into steps of the learning rate)
+DP_STEPS = 3
+DP_METRIC_RTOL = 1e-4
+DP_ATOL, DP_NEAR, DP_NEAR_SHARE = 3e-4, 1e-6, 1e-3
 
 
 def log(msg: str) -> None:
@@ -166,8 +195,8 @@ def selected_rows(sel, P: int) -> int:
 
 
 def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1322,16 +1351,81 @@ def eval_cli():
             f"{ {k: round(v, 4) for k, v in aps.items()} }")
 
         out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            demo.main(["--config", "full", "--synthetic", "1"] + dev)
+        png = os.path.join(work, "demo.png")
+        drawn = []
+        draw_bev = demo.draw_bev
+
+        def record(*args, **kw):
+            drawn.append(kw)
+            return draw_bev(*args, **kw)
+        demo.draw_bev = record
+        try:
+            with contextlib.redirect_stdout(out):
+                demo.main(["--config", "full", "--synthetic", "1", "--viz",
+                           png] + dev)
+        finally:
+            demo.draw_bev = draw_bev
         head = out.getvalue().splitlines()[0]
         if not head.startswith("frame 000000:"):
             raise RuntimeError(f"eval: cli.demo printed {head!r}")
-        log(f"eval: cli.demo --config full: {head}")
+        red = demo_viz_check(png, drawn[0])
+        log(f"eval: cli.demo --config full --viz: {head}; {red}")
+
+        out = io.StringIO()
+        debug_dir = os.path.join(work, "debug")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train.main(["--config", "tiny", "--synthetic", "4", "--steps",
+                        "1", "--debug", "--workdir", debug_dir] + dev)
+        with open(os.path.join(debug_dir, "metrics.jsonl")) as f:
+            (m,) = [json.loads(line) for line in f]
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])) \
+                or not os.path.exists(os.path.join(
+                    debug_dir, "checkpoints", "ckpt_00000001.pt")):
+            raise RuntimeError(f"eval: cli.train --debug logged {m}")
+        log(f"eval: cli.train --config tiny --debug --steps 1 on the card "
+            f"(anomaly detection, finite checks) in "
+            f"{time.perf_counter() - t:.1f} s: loss {m['loss']:.4f}, "
+            f"grad_norm {m['grad_norm']:.4f}")
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+def demo_viz_check(png: str, drawn: dict) -> str:
+    """The demo's BEV PNG decoded back by data/png.py: the voxel range's
+    size at 10 px a metre, and red on the outline of the highest-scoring
+    detection (one of its corners' pixels, red over whatever lay
+    beneath: R above G and B by 20)."""
+    from dcf_torch.config import multi_scale_config
+    from dcf_torch.data.png import read_png
+    from dcf_torch.geometry.np_boxes import box_corners_bev
+    from dcf_torch.utils.viz import bev_pixels
+    vox = multi_scale_config().voxel
+    img = read_png(png)
+    want = (int(round((vox.x_max - vox.x_min) * 10)),
+            int(round((vox.y_max - vox.y_min) * 10)), 3)
+    if img.shape != want:
+        raise RuntimeError(f"demo --viz: {img.shape}, expected {want}")
+    boxes, scores = drawn["det_boxes"], drawn["det_scores"]
+    if len(boxes) == 0:
+        raise RuntimeError("demo --viz: no detection drawn")
+    k = int(np.argmax(scores))
+    corners = np.floor(bev_pixels(box_corners_bev(
+        boxes[k:k + 1, [0, 1, 3, 4, 6]])[0], vox, 10.0)).astype(int)
+    inside = [(r, c) for r, c in corners
+              if 0 <= r < img.shape[0] and 0 <= c < img.shape[1]]
+    reds = [tuple(int(v) for v in img[r, c]) for r, c in inside
+            if int(img[r, c, 0]) > int(img[r, c, 1]) + 20
+            and int(img[r, c, 0]) > int(img[r, c, 2]) + 20]
+    if not reds:
+        raise RuntimeError(f"demo --viz: no red on the corners {inside} of "
+                           f"the top detection (score {scores[k]:.3f})")
+    return (f"{os.path.basename(png)} {img.shape[1]}x{img.shape[0]}, "
+            f"{len(boxes)} detections drawn, the top one (score "
+            f"{scores[k]:.3f}) red at {len(reds)} of its {len(inside)} "
+            f"corner pixels {reds}")
 
 
 def check_eval_reference():
@@ -1728,6 +1822,281 @@ def host_core(device, smi: str, build_log: str, eval_readings, gts, dets):
     return launches
 
 
+def _dp_config(batch_size: int):
+    """Phase 14's config: tiny_config in float32 with EMA and without
+    augmentation, so batches depend on the frames alone (a per-process
+    batch of 1 on two ranks sees what one process sees at 2)."""
+    import dataclasses
+    from dcf_torch.config import tiny_config
+    cfg = tiny_config(True)
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dtype="float32"),
+        augment=dataclasses.replace(cfg.augment, flip_prob=0.0,
+                                    gt_sampling=False, global_rotation=0.0,
+                                    global_scale=(1.0, 1.0)),
+        train=dataclasses.replace(cfg.train, batch_size=batch_size,
+                                  num_steps=DP_STEPS, ema_decay=0.5,
+                                  checkpoint_every=1000, log_every=1))
+
+
+def _dp_frames():
+    """Two frames with 3 and 1 boxes (different num_pos), small enough
+    that crop_and_pad never subsamples them."""
+    from dcf_torch.data.synthetic import make_frame
+    return [make_frame("000000", n_ground=1200, pts_per_box=100, seed=0),
+            make_frame("000001", boxes=[("Car", 12.0, -3.0, 0.5)],
+                       n_ground=1200, pts_per_box=100, seed=1)]
+
+
+def _dp_train(batch_size: int, workdir: str, **kw):
+    """train() of _dp_config on the card, TF32 off, returning the state
+    and the launches (fusion forward, backward, clip) of the run."""
+    import torch
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion, fused_fusion_bwd
+    from dcf_torch.train.loop import train
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fused_fusion.launches = fused_fusion_bwd.launches = 0
+    clip.launches = 0
+    try:
+        state = train(_dp_config(batch_size), _dp_frames(), workdir,
+                      device="cuda", num_steps=DP_STEPS, **kw)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return state, {"fusion_fwd": fused_fusion.launches,
+                   "fusion_bwd": fused_fusion_bwd.launches,
+                   "clip_pairs": clip.launches}
+
+
+def _frame_num_pos():
+    """num_pos of each of phase 14's frames alone, on the card (targets
+    depend on the frame, not on the weights)."""
+    import torch
+    from dcf_torch.data.preprocess import frame_to_example, stack_examples
+    from dcf_torch.eval.inference import batch_to_device
+    from dcf_torch.models.anchors import anchor_pack
+    from dcf_torch.params import init_params
+    from dcf_torch.train.step import build_loss_sums_fn
+    cfg = _dp_config(1)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    sums_fn = build_loss_sums_fn(cfg, model)
+    pack = anchor_pack(cfg, "cuda")
+    with torch.no_grad():
+        return [float(sums_fn(batch_to_device(stack_examples(
+            [frame_to_example(f, cfg)]), "cuda"), pack)[1]["num_pos"])
+            for f in _dp_frames()]
+
+
+def data_parallel_rank(rank: int, world: int, port: str, workdir: str,
+                       out: str) -> int:
+    """One rank of phase 14, in its own process: joins the gloo group,
+    trains its stride of the frames on the card and saves its final
+    parameters, EMA and launches to `out`/rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+    from dcf_torch.parallel import mesh
+    if not mesh.initialize_distributed(f"localhost:{port}", world, rank,
+                                       backend="gloo"):
+        raise RuntimeError("data parallel: no process group")
+    try:
+        state, launches = _dp_train(1, workdir, num_data_shards=world)
+        torch.save({"step": state.step, "launches": launches,
+                    "params": {n: p.detach().cpu() for n, p in
+                               state.model.named_parameters()},
+                    "ema": {n: e.cpu() for n, e in state.ema.items()}},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def data_parallel():
+    """Phase 14: two ranks on the one card through gloo (NCCL needs a
+    card per rank), one frame each, against a single-process B=2 run on
+    the card. Returns the ranks' launches (the `data_parallel` path)."""
+    import json as _json
+    import shutil
+    import socket
+    import torch
+    work = os.path.join(HERE, "_dp_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = str(sock.getsockname()[1])
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        t = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--data-parallel-rank", str(r), "2", port,
+             os.path.join(work, f"rank{r}"), work], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"data parallel: rank {r} exited "
+                                   f"{p.returncode}:\n{out[-3000:]}")
+        ranks_s = time.time() - t
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=True) for r in range(2)]
+        local = _frame_num_pos()
+        if local[0] == local[1]:
+            raise RuntimeError(f"data parallel: the ranks' frames have "
+                               f"equal num_pos {local}")
+        sp_dir = os.path.join(work, "single")
+        sp, sp_launches = _dp_train(2, sp_dir)
+
+        def metrics(d):
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                return [_json.loads(line) for line in f]
+        got, want = metrics(os.path.join(work, "rank0")), metrics(sp_dir)
+        ckpts = os.listdir(os.path.join(work, "rank0", "checkpoints"))
+        rank1_wrote = os.path.exists(os.path.join(work, "rank1"))
+        if f"ckpt_{DP_STEPS:08d}.pt" not in ckpts or rank1_wrote:
+            raise RuntimeError(f"data parallel: rank 0 wrote {ckpts}; rank "
+                               f"1's workdir exists: {rank1_wrote}")
+        if len(got) != DP_STEPS or any(
+                g["num_pos"] != w["num_pos"] or any(
+                    abs(g[k] - w[k]) > DP_METRIC_RTOL * abs(w[k])
+                    for k in ("loss", "grad_norm"))
+                for g, w in zip(got, want)):
+            raise RuntimeError(f"data parallel: rank 0 logged {got}, the "
+                               f"single process {want}")
+        for tree in ("params", "ema"):
+            for name in ranks[0][tree]:
+                if not torch.equal(ranks[0][tree][name],
+                                   ranks[1][tree][name]):
+                    raise RuntimeError(f"data parallel: ranks differ in "
+                                       f"{tree} {name}")
+        worst, near, n = 0.0, 0, 0
+        sp_trees = {"params": {k: v.detach().cpu() for k, v in
+                               sp.model.named_parameters()},
+                    "ema": {k: v.cpu() for k, v in sp.ema.items()}}
+        for tree in ("params", "ema"):
+            for name, g in ranks[0][tree].items():
+                d = (g - sp_trees[tree][name]).abs()
+                worst = max(worst, d.max().item())
+                near += int((d > DP_NEAR).sum())
+                n += d.numel()
+        if worst > DP_ATOL or near > DP_NEAR_SHARE * n:
+            raise RuntimeError(f"data parallel: parameters and EMA against "
+                               f"the single process: max|err| {worst}, "
+                               f"{near} of {n} elements beyond {DP_NEAR}")
+        launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                    for k in ranks[0]["launches"]}
+        per_rank = {"fusion_fwd": 4 * DP_STEPS, "fusion_bwd": 4 * DP_STEPS,
+                    "clip_pairs": DP_STEPS}
+        if any(r["launches"] != per_rank for r in ranks) or \
+                sp_launches != per_rank:
+            raise RuntimeError(f"data parallel: launches per rank "
+                               f"{[r['launches'] for r in ranks]}, single "
+                               f"process {sp_launches}, expected {per_rank}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"data parallel: 2 gloo ranks on one card (NCCL needs a card per "
+        f"rank: not exercised), tiny_config float32, TF32 off, "
+        f"{DP_STEPS} steps, one frame a rank (num_pos {local} a rank, "
+        f"{[m['num_pos'] for m in got]} global), {ranks_s:.1f} s with "
+        f"process start; ranks bit-equal; against one process at B=2: "
+        f"loss {[round(m['loss'], 6) for m in got]} / "
+        f"{[round(m['loss'], 6) for m in want]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in got]} / "
+        f"{[round(m['grad_norm'], 4) for m in want]} (within rtol "
+        f"{DP_METRIC_RTOL}), parameters and EMA max|err| {worst:.3g} (atol "
+        f"{DP_ATOL}), {near} of {n} elements beyond {DP_NEAR}; rank 0 alone "
+        f"wrote ckpt_{DP_STEPS:08d}.pt and metrics.jsonl; launches "
+        f"{launches} ({per_rank} a rank)")
+    return launches
+
+
+CLASSES = ("Car", "Pedestrian", "Cyclist")
+# the keys of scripts/generalization.py's generalization.json
+GEN_KEYS = ({f"{c}_{m}_{d}_{tag}" for c in CLASSES for m in ("3d", "bev")
+             for d in ("easy", "moderate") for tag in ("R40", "exact")}
+            | {f"{c}_3d_moderate_{tag}" for c in CLASSES
+               for tag in ("ema_exact", "best_exact")}
+            | {f"{c}_{m}_moderate_int8_exact" for c in CLASSES
+               for m in ("3d", "bev")}
+            | {"best_step", "best_kind"})
+
+
+def generalization():
+    """Phase 15: the train-and-evaluate workflow at full width through
+    `python -m dcf_torch.tools.generalization`'s main: 20 steps on 8
+    train frames, 4 val frames, probe evaluations every 10 steps on 2
+    frames, EMA, gt-sampling and the int8 evaluation. Returns the
+    launches (the `generalization` path)."""
+    import shutil
+    import torch
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion, fused_fusion_bwd
+    from dcf_torch.tools import generalization as gen
+    steps, n_train, n_val, every, n_probe = 20, 8, 4, 10, 2
+    work = os.path.join(HERE, "_gen_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        fused_fusion.launches = fused_fusion_bwd.launches = 0
+        clip.launches = 0
+        t = time.time()
+        results = gen.main([
+            "--steps", str(steps), "--train-frames", str(n_train),
+            "--val-frames", str(n_val), "--eval-every", str(every),
+            "--probe-frames", str(n_probe), "--ema", "0.999", "--gt-db",
+            "--int8-eval", "--workdir", work, "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        launches = {"fusion_fwd": fused_fusion.launches,
+                    "fusion_bwd": fused_fusion_bwd.launches,
+                    "clip_pairs": clip.launches}
+        with open(os.path.join(work, "generalization.json")) as f:
+            written = json.load(f)
+        with open(os.path.join(work, "eval_curve.json")) as f:
+            curve = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if written != results or set(written) != GEN_KEYS:
+        raise RuntimeError(f"generalization: keys {sorted(written)}")
+    aps = {k: v for k, v in written.items()
+           if k not in ("best_step", "best_kind")}
+    if not all(0.0 <= v <= 1.0 for v in aps.values()) or \
+            written["best_kind"] not in ("raw", "ema") or \
+            [row["step"] for row in curve] != [every, 2 * every]:
+        raise RuntimeError(f"generalization: {written}, curve {curve}")
+    # served batches (one each: at most 8 frames): 2 probe evaluations x
+    # raw and EMA, val R40 / exact / EMA / best, the int8 val; plus the
+    # 4 calibration batches (forward only) and the training steps
+    served = 2 * 2 + 4 + 1
+    expect = {"fusion_fwd": 4 * (steps + served + 4),
+              "fusion_bwd": 4 * steps, "clip_pairs": steps + served}
+    if launches != expect:
+        raise RuntimeError(f"generalization: launches {launches} != "
+                           f"{expect}")
+    log(f"generalization: multi_scale_config, {steps} steps (B=2, EMA "
+        f"0.999, gt-sampling), {n_train} train / {n_val} val / {n_probe} "
+        f"probe frames, probe evaluations every {every} steps, int8 "
+        f"evaluation, in {secs:.1f} s; both files carry the JAX script's "
+        f"{len(GEN_KEYS)} keys, APs in [0, 1]; best {written['best_kind']} "
+        f"at step {written['best_step']}; curve {curve}; val exact moderate "
+        f"3d (bf16) {[aps[f'{c}_3d_moderate_exact'] for c in CLASSES]}; "
+        f"launches {launches}")
+    return launches
+
+
 def build_host_core() -> str:
     """Phase 13's build (started with phase 2's, since every phase's
     frames go through it): the host core compiled by g++ into
@@ -1743,6 +2112,9 @@ def build_host_core() -> str:
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--data-parallel-rank"]:        # phase 14's ranks
+        rank, world, port, workdir, out = sys.argv[2:7]
+        return data_parallel_rank(int(rank), int(world), port, workdir, out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1798,6 +2170,8 @@ def main() -> int:
     readings, gts, dets = time_eval(device)
     paths["host_core"] = host_core(device, smi, host_build, readings, gts,
                                    dets)
+    paths["data_parallel"] = data_parallel()
+    paths["generalization"] = generalization()
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

@@ -4,6 +4,10 @@ seeded random weights.
     python -m dcf_torch.cli.demo [--config full] [--synthetic 1]
     python -m dcf_torch.cli.demo --config full --data-root /data/kitti
     python -m dcf_torch.cli.demo --config tiny --device cpu
+    python -m dcf_torch.cli.demo --config tiny --viz /tmp/demo.png
+
+With --viz, a bird's-eye view of the frame (points, gt boxes green,
+detections red by score) is written as a PNG.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from dcf_torch.data.preprocess import frame_to_example, stack_examples
 from dcf_torch.device import resolve_device
 from dcf_torch.eval.inference import make_inference_fn, to_host
 from dcf_torch.params import init_params
+from dcf_torch.utils.viz import draw_bev
 
 
 def main(argv=None) -> None:
@@ -27,6 +32,7 @@ def main(argv=None) -> None:
     p.add_argument("--config", default="tiny",
                    choices=list(CONFIGS))
     p.add_argument("--frame", type=int, default=0)
+    p.add_argument("--viz", default=None, help="write a BEV png here")
     add_data_args(p)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -49,6 +55,11 @@ def main(argv=None) -> None:
         print(f"  {CLASS_NAMES[c]:<10} score={s:.3f} "
               f"xyz=({b[0]:.1f},{b[1]:.1f},{b[2]:.1f}) "
               f"lwh=({b[3]:.1f},{b[4]:.1f},{b[5]:.1f}) yaw={b[6]:.2f}")
+
+    if args.viz:
+        draw_bev(args.viz, frame.points, cfg.voxel, gt_boxes=frame.boxes,
+                 det_boxes=boxes, det_scores=scores)
+        print(f"wrote {args.viz}")
 
 
 if __name__ == "__main__":

@@ -29,11 +29,8 @@ import numpy as np
 import torch
 
 from dcf_torch.ops import int8_mma as M
+from dcf_torch.utils.flops import H100_PEAK_BF16_FLOPS, H100_PEAK_INT8_OPS
 from dcf_torch.utils.timing import cuda_ms, graph_ms
-
-# H100 SXM dense tensor peaks at 700 W (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12
-BF16_FLOP_PER_S = 989e12
 
 
 def make_inputs(device, seed: int = 0, density: float = 1.0 / M.CAPR):
@@ -94,7 +91,8 @@ def run(device="cuda", blocks: Optional[int] = None, seed: int = 0
     ops = 2.0 * M.HID * M.CAPR * M.W * M.PRODUCTS * blocks
     dense = make_inputs(device, seed + 1, density=0.02)
     out = {"blocks": blocks, "ops": ops}
-    for kind, peak in (("int8", INT8_OPS_PER_S), ("bf16", BF16_FLOP_PER_S)):
+    for kind, peak in (("int8", H100_PEAK_INT8_OPS),
+                       ("bf16", H100_PEAK_BF16_FLOPS)):
         slab, oh = make_inputs(device, seed)[kind]
         err = max(check(kind, slab, oh, blocks),
                   check(kind, *dense[kind], 1))

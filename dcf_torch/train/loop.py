@@ -1,6 +1,8 @@
-"""Training orchestration, mirroring `dcf.train.loop.train` on one device:
-the host feeds prefetched batches, keeps the step counter, logs scalars
-and checkpoints; the step itself runs on the device.
+"""Training orchestration, mirroring `dcf.train.loop.train`: the host
+feeds prefetched batches, keeps the step counter, logs scalars and
+checkpoints; the step itself runs on the device. Several processes
+(`dcf_torch.parallel.mesh.initialize_distributed`) train data parallel,
+one device each.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dcf_torch.data.loader import Loader, infinite_batches
 from dcf_torch.device import resolve_device
 from dcf_torch.eval.inference import batch_to_device
 from dcf_torch.models.anchors import anchor_pack
+from dcf_torch.parallel import mesh as pmesh
 from dcf_torch.params import init_params
 from dcf_torch.train import checkpoint as ckpt
 from dcf_torch.train.state import TrainState, create_train_state
@@ -24,9 +27,34 @@ from dcf_torch.train.step import make_train_step
 from dcf_torch.utils.logging import MetricsLogger
 
 
+class _ProcessShard:
+    """Dataset view restricted to this process's stride (a copy of
+    `dcf.train.loop._ProcessShard`): process p of n sees frames p, p+n,
+    p+2n, ... so processes read disjoint data.
+
+    Step-based semantics, not epoch-exact: indexing wraps modulo the
+    underlying dataset, so for uneven dataset/process splits a process
+    may revisit a frame within what another would call an "epoch", and
+    `len()` clamps to >= 1 so every process can always draw a batch."""
+
+    def __init__(self, dataset, process_index: int, process_count: int):
+        self.dataset = dataset
+        self.offset = process_index
+        self.stride = process_count
+
+    def __len__(self) -> int:
+        return max((len(self.dataset) - self.offset + self.stride - 1)
+                   // self.stride, 1)
+
+    def __getitem__(self, i: int):
+        return self.dataset[(i * self.stride + self.offset)
+                            % len(self.dataset)]
+
+
 def train(cfg: Config, dataset, workdir: str, device="cuda",
           gt_db: Optional[GTDatabase] = None, resume: bool = False,
           num_steps: Optional[int] = None,
+          num_data_shards: Optional[int] = None, debug: bool = False,
           eval_hook: Optional[Callable[[TrainState, int], None]] = None,
           eval_every: int = 0) -> TrainState:
     """Run (or resume) a training job on `device`; returns the final state.
@@ -38,11 +66,31 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
     previous line; every `checkpoint_every` steps (and at the last) a
     checkpoint is written. eval_hook(state, step) runs every `eval_every`
     steps and at the last one.
+
+    Several processes: each loads a disjoint stride of the dataset with
+    the loader seed cfg.train.seed + rank (global batch = batch_size x
+    processes); every rank restores from the same `workdir` and then
+    takes rank 0's state; checkpoints, metrics.jsonl and eval_hook run on
+    rank 0 only. `num_data_shards`, when given, must equal the number of
+    processes (one device each). debug=True runs the debug step
+    (`dcf_torch.train.step.make_train_step`).
     """
     device = resolve_device(device)
-    os.makedirs(workdir, exist_ok=True)
+    rank, world = pmesh.process_index(), pmesh.process_count()
+    if num_data_shards is not None and num_data_shards != world:
+        raise ValueError(
+            f"--data-shards {num_data_shards} with {world} process(es): "
+            f"each process drives one device, so the data shards are the "
+            f"processes")
+    is_main = rank == 0
+    if world > 1:
+        device = pmesh.process_device(device)
+        dataset = _ProcessShard(dataset, rank, world)
+    if is_main:
+        os.makedirs(workdir, exist_ok=True)
     t = cfg.train
-    loader = Loader(dataset, cfg, training=True, gt_db=gt_db, seed=t.seed)
+    loader = Loader(dataset, cfg, training=True, gt_db=gt_db,
+                    seed=t.seed + rank)
     batches = infinite_batches(loader)
     try:
         pending = next(batches)
@@ -55,8 +103,10 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
             if latest:
                 state = ckpt.restore_checkpoint(latest, state)
                 print(f"resumed from {latest} at step {state.step}")
+        if world > 1:
+            pmesh.broadcast_state(state)
         pack = anchor_pack(cfg, device)
-        step_fn = make_train_step(cfg, model, device)
+        step_fn = make_train_step(cfg, model, device, debug=debug)
         logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"))
         total = num_steps if num_steps is not None else t.num_steps
         step, t0, since = state.step, time.time(), 0
@@ -66,6 +116,8 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
             pending = next(batches)
             step += 1
             since += 1
+            if not is_main:
+                continue
             if step % t.log_every == 0 or step == total:
                 # reading the metrics waits for the device: the rate is
                 # over finished steps

@@ -187,7 +187,8 @@ def test_entry_points_need_cuda_or_cpu():
     make_inference_fn(cfg, model, device="cpu")
 
 
-_BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "dcf")
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib",
+            "msgpack", "dcf")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
