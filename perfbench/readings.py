@@ -1,0 +1,107 @@
+"""Readings that the limits of `correct` are set from, many seeds in one
+process (not run by the benchmark's own runs):
+
+    python3 perfbench/readings.py --workload <cell> --seeds 1,2,3 \
+        [--control N] [--fault NAME] [--seconds 2]
+
+Per seed one JSON line with the compared numbers of the program as the
+cell runs it (the lower readings) or, with `--fault`, of the program with
+a fault of `faults.py` planted. On the first N seeds (`--control N`) the
+line also holds the control's numbers on the same frames or batches: the
+reference with its convs rounded through float8 put in the program's
+place.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worst_leaves(prog, ref, names, n=3):
+    """The leaves with the widest gaps, for the look at a reading."""
+    import numpy as np
+    out = {}
+    for key in ("g1", "change"):
+        p, r = np.asarray(prog[key]), np.asarray(ref[key])
+        scale = np.maximum(r, np.median(r))
+        keep = ref["g1"] >= 1e-3 * np.median(ref["g1"])
+        gap = np.where(keep, np.abs(p - r) / scale, 0.0)
+        out[key + "_worst"] = [[names[i], float(p[i]), float(r[i]),
+                                float(gap[i])]
+                               for i in np.argsort(-gap)[:n]]
+    out["losses"] = [list(map(float, prog["losses"])),
+                     list(map(float, ref["losses"]))]
+    return out
+
+
+def control_numbers(mod, mode, out, device):
+    """The control's numbers on the run's own frames or batches."""
+    if mode == "serve":
+        return mod.compare(out, device, control=True)
+    low = mod.reference_steps(out["ref_cfg"], out["weights"], out["replayed"],
+                              device, quant="fp8")
+    numbers = {"batch_diff": 0.0}
+    numbers.update(mod.compare_numbers(low, out["reference"]))
+    numbers.update(worst_leaves(low, out["reference"], list(out["weights"])))
+    return numbers
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--seconds", type=float, default=2.0)
+    ap.add_argument("--control", type=int, default=0)
+    ap.add_argument("--fault", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+    from perfbench import faults, harness, registry
+    bench = registry.load_benchmark(ROOT)
+    try:
+        cell = registry.cell(bench, args.workload)
+    except KeyError:                    # a cell left out: <config>.<mix>
+        name, mix = args.workload.split(".", 1)
+        cell = {"config": name, "traffic": mix}
+    config = registry.config(cell["config"])
+    traffic = registry.traffic(cell["traffic"])
+    mode = traffic["mode"]
+    mod = harness.mode_module(mode)
+    fault = None
+    if args.fault:
+        fault = (faults.SERVE if mode == "serve" else faults.TRAIN)[args.fault]
+    device = torch.device(args.device)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    for n, seed in enumerate(seeds):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            env = harness.Env(config_json=json.dumps(config["config"]),
+                              traffic=traffic, seed=seed,
+                              seconds=args.seconds, trace=False,
+                              device=device, tmpdir=tmpdir, fault=fault)
+            out = mod.run(env)
+            numbers = mod.compare(out, device)
+            if mode == "train":
+                numbers.update(worst_leaves(out, out["reference"],
+                                            list(out["weights"])))
+            line = {"workload": args.workload, "seed": seed,
+                    "fault": args.fault, "numbers": numbers,
+                    "e2e": out["e2e"]}
+            if n < args.control:
+                line["control"] = control_numbers(mod, mode, out, device)
+        line["seconds"] = time.perf_counter() - t0
+        print(json.dumps(line), flush=True)
+        del out
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
