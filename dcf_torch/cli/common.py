@@ -1,13 +1,18 @@
 """Shared CLI plumbing of the port's entry points (mirrors
-`dcf.cli.common`): the configs by name, the data arguments and the
-device argument."""
+`dcf.cli.common`): the configs by name, the data arguments, the
+device argument and the trace flag."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+from typing import Optional
 
 from dcf_torch import config as cfgmod
 from dcf_torch.data.synthetic import SyntheticDataset
+from dcf_torch.parallel import mesh as pmesh
+from dcf_torch.utils import trace
 
 CONFIGS = {
     "lidar": cfgmod.lidar_only_config,
@@ -26,6 +31,34 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                    help="use N synthetic frames instead of KITTI data")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs; cuda without a card raises")
+
+
+def add_trace_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the program's spans and counters and "
+                        "write them here as a Chrome trace at exit")
+
+
+@contextlib.contextmanager
+def tracing(path: Optional[str]):
+    """With a path, the tracer records inside the block and its records
+    are written to `path` as a Chrome trace on the way out, whatever
+    ends the block; with several processes, rank r writes
+    `<path stem>.rank<r><suffix>`."""
+    if not path:
+        yield
+        return
+    if pmesh.process_count() > 1:
+        stem, ext = os.path.splitext(path)
+        path = f"{stem}.rank{pmesh.process_index()}{ext}"
+    trace.reset()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.enable(False)
+        trace.export_chrome(path)
+        print(f"wrote {path}")
 
 
 def resolve_dataset(args):

@@ -7,7 +7,8 @@ seeded random weights.
     python -m dcf_torch.cli.demo --config tiny --viz /tmp/demo.png
 
 With --viz, a bird's-eye view of the frame (points, gt boxes green,
-detections red by score) is written as a PNG.
+detections red by score) is written as a PNG; with --trace PATH, the
+frame's spans and counters (`dcf_torch.utils.trace`) as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import argparse
 
 import torch
 
-from dcf_torch.cli.common import CONFIGS, add_data_args, resolve_dataset
+from dcf_torch.cli.common import (CONFIGS, add_data_args, add_trace_arg,
+                                  resolve_dataset, tracing)
 from dcf_torch.data.kitti import CLASS_NAMES
 from dcf_torch.data.preprocess import frame_to_example, stack_examples
 from dcf_torch.device import resolve_device
@@ -33,6 +35,7 @@ def main(argv=None) -> None:
                    choices=list(CONFIGS))
     p.add_argument("--frame", type=int, default=0)
     p.add_argument("--viz", default=None, help="write a BEV png here")
+    add_trace_arg(p)
     add_data_args(p)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -43,7 +46,8 @@ def main(argv=None) -> None:
     frame = resolve_dataset(args)[args.frame]
     model = init_params(cfg, torch.Generator().manual_seed(0), device=device)
     infer = make_inference_fn(cfg, model, device=device)
-    out = to_host(infer(stack_examples([frame_to_example(frame, cfg)])))
+    with tracing(args.trace):
+        out = to_host(infer(stack_examples([frame_to_example(frame, cfg)])))
 
     keep = out["valid"][0]
     boxes = out["boxes"][0][keep]

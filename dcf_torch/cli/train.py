@@ -12,7 +12,11 @@ batch x processes), with torchrun or with the flags:
         --num-processes 2 --process-id {0,1} ...
 
 Checkpoints go to WORKDIR/checkpoints (`ckpt_<step>.pt`), metrics to
-WORKDIR/metrics.jsonl, both from process 0 only.
+WORKDIR/metrics.jsonl, both from process 0 only. With --trace PATH the
+program's spans and counters (`dcf_torch.utils.trace`) are written to
+PATH as a Chrome trace at exit, and each metrics line also carries the
+mean ms of the batch wait, the host-to-device copy, the augmentation and
+an example's build since the previous line.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import argparse
 
 import torch.distributed as dist
 
-from dcf_torch.cli.common import CONFIGS, add_data_args, resolve_dataset
+from dcf_torch.cli.common import (CONFIGS, add_data_args, add_trace_arg,
+                                  resolve_dataset, tracing)
 from dcf_torch.data.augment import GTDatabase
 from dcf_torch.device import resolve_device
 from dcf_torch.parallel.mesh import initialize_distributed
@@ -52,6 +57,7 @@ def main(argv=None) -> None:
                         "as torchrun does)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    add_trace_arg(p)
     add_data_args(p)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -64,9 +70,10 @@ def main(argv=None) -> None:
         args.coordinator, args.num_processes, args.process_id,
         backend="gloo" if device.type == "cpu" else None)
     try:
-        train(cfg, dataset, args.workdir, device=device, gt_db=gt_db,
-              resume=args.resume, num_steps=args.steps,
-              num_data_shards=args.data_shards, debug=args.debug)
+        with tracing(args.trace):
+            train(cfg, dataset, args.workdir, device=device, gt_db=gt_db,
+                  resume=args.resume, num_steps=args.steps,
+                  num_data_shards=args.data_shards, debug=args.debug)
     finally:
         if owned:
             dist.destroy_process_group()

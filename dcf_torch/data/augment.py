@@ -33,6 +33,7 @@ import numpy as np
 from dcf_torch.config import AugmentConfig
 from dcf_torch.data.synthetic import CLASS_NAMES, Frame
 from dcf_torch.geometry import np_boxes
+from dcf_torch.utils import trace
 
 
 def flip_frame(frame: Frame) -> Frame:
@@ -276,16 +277,21 @@ def augment_frame(frame: Frame, cfg: AugmentConfig,
                   db: Optional[GTDatabase] = None,
                   lidar_only_augs: bool = False) -> Frame:
     """Full training-time augmentation pipeline for one frame."""
-    if db is not None and cfg.gt_sampling:
-        frame = gt_sample_frame(frame, db, cfg, rng)
-    if rng.uniform() < cfg.flip_prob:
-        frame = flip_frame(frame)
-    if lidar_only_augs:
-        if cfg.global_rotation > 0:
-            frame = global_rotate(
-                frame, rng.uniform(-cfg.global_rotation,
-                                   cfg.global_rotation))
-        lo, hi = cfg.global_scale
-        if hi > lo:
-            frame = global_scale(frame, rng.uniform(lo, hi))
-    return frame
+    with trace.span("augment"):
+        if db is not None and cfg.gt_sampling:
+            with trace.span("augment.gt_sample"):
+                frame = gt_sample_frame(frame, db, cfg, rng)
+        if rng.uniform() < cfg.flip_prob:
+            with trace.span("augment.flip"):
+                frame = flip_frame(frame)
+        if lidar_only_augs:
+            if cfg.global_rotation > 0:
+                with trace.span("augment.rotate"):
+                    frame = global_rotate(
+                        frame, rng.uniform(-cfg.global_rotation,
+                                           cfg.global_rotation))
+            lo, hi = cfg.global_scale
+            if hi > lo:
+                with trace.span("augment.scale"):
+                    frame = global_scale(frame, rng.uniform(lo, hi))
+        return frame

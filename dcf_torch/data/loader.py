@@ -18,6 +18,7 @@ import numpy as np
 from dcf_torch.config import Config
 from dcf_torch.data.augment import GTDatabase, augment_frame
 from dcf_torch.data.preprocess import frame_to_example, stack_examples
+from dcf_torch.utils import trace
 
 
 class Loader:
@@ -44,17 +45,20 @@ class Loader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _build_example(self, index: int, epoch: int) -> Dict[str, np.ndarray]:
-        frame = self.dataset[index]
-        # SeedSequence entropy list: collision-free across (seed, epoch,
-        # index)
-        rng = np.random.default_rng([self.seed, epoch, index])
-        if self.training:
-            frame = augment_frame(
-                frame, self.cfg.augment, rng, db=self.gt_db,
-                lidar_only_augs=not self.cfg.with_fusion)
-        return frame_to_example(frame, self.cfg,
-                                seed=int(rng.integers(2 ** 31)))
+    def _build_example(self, index: int, epoch: int, batch: int = -1
+                       ) -> Dict[str, np.ndarray]:
+        with trace.span("loader.example", epoch=epoch, batch=batch,
+                        index=index):
+            frame = self.dataset[index]
+            # SeedSequence entropy list: collision-free across (seed,
+            # epoch, index)
+            rng = np.random.default_rng([self.seed, epoch, index])
+            if self.training:
+                frame = augment_frame(
+                    frame, self.cfg.augment, rng, db=self.gt_db,
+                    lidar_only_augs=not self.cfg.with_fusion)
+            return frame_to_example(frame, self.cfg,
+                                    seed=int(rng.integers(2 ** 31)))
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """One pass over the dataset (shuffled when training). Closing the
@@ -72,21 +76,22 @@ class Loader:
         stop = threading.Event()
 
         def put(item) -> None:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return
-                except queue.Full:
-                    continue
+            with trace.span("loader.put_wait"):
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return
+                    except queue.Full:
+                        continue
 
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idx_batch in batches:
+                    for b, idx_batch in enumerate(batches):
                         if stop.is_set():
                             break
                         examples = list(pool.map(
-                            lambda i: self._build_example(int(i), epoch),
+                            lambda i: self._build_example(int(i), epoch, b),
                             idx_batch))
                         put(stack_examples(examples))
             except Exception as e:          # raised in the consumer
@@ -98,6 +103,8 @@ class Loader:
         t.start()
         try:
             while True:
+                if trace.active():
+                    trace.count("loader.queue_depth_at_get", q.qsize())
                 item = q.get()
                 if item is None:
                     break

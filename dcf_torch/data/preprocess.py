@@ -23,6 +23,7 @@ from dcf_torch import native
 from dcf_torch.config import Config
 from dcf_torch.data.synthetic import Frame
 from dcf_torch.data.voxelize import crop_and_pad
+from dcf_torch.utils import trace
 
 
 def _linear_taps(n_out: int, n_in: int):
@@ -279,13 +280,22 @@ def fusion_ranks_plain(pts: np.ndarray, mask: np.ndarray, uvz: np.ndarray,
 def frame_to_example(frame: Frame, cfg: Config, seed: int = 0
                      ) -> Dict[str, np.ndarray]:
     """Build the static-shape example dict the detector consumes."""
-    points, mask = crop_and_pad(frame.points, cfg.voxel, seed=seed)
+    with trace.span("preprocess", frame=frame.frame_id):
+        return _frame_to_example(frame, cfg, seed)
+
+
+def _frame_to_example(frame: Frame, cfg: Config, seed: int
+                      ) -> Dict[str, np.ndarray]:
+    with trace.span("preprocess.crop"):
+        points, mask = crop_and_pad(frame.points, cfg.voxel, seed=seed)
     if cfg.with_fusion:
-        points, mask = sort_points_host(points, mask, cfg)
-    if cfg.with_camera:               # [H/4, W/4, 48], the stem's layout
-        image, scale = prepare_image_s2d(frame.image, cfg)
-    else:
-        image, scale = prepare_image(frame.image, cfg)
+        with trace.span("preprocess.sort"):
+            points, mask = sort_points_host(points, mask, cfg)
+    with trace.span("preprocess.image"):
+        if cfg.with_camera:           # [H/4, W/4, 48], the stem's layout
+            image, scale = prepare_image_s2d(frame.image, cfg)
+        else:
+            image, scale = prepare_image(frame.image, cfg)
     v2i = frame.calib.velo_to_image_matrix.copy()
     v2i[:2] *= scale                     # resize folded into projection
 
@@ -309,11 +319,13 @@ def frame_to_example(frame: Frame, cfg: Config, seed: int = 0
         "gt_mask": gt_mask,
     }
     if cfg.with_fusion:
-        out.update(fusion_host_arrays(points, mask, out["velo_to_image"],
-                                      cfg))
+        with trace.span("preprocess.fusion_arrays"):
+            out.update(fusion_host_arrays(points, mask,
+                                          out["velo_to_image"], cfg))
     return out
 
 
 def stack_examples(examples) -> Dict[str, np.ndarray]:
     """Collate a list of example dicts into a batched dict."""
-    return {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+    with trace.span("preprocess.stack"):
+        return {k: np.stack([e[k] for e in examples]) for k in examples[0]}

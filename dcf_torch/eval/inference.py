@@ -18,6 +18,7 @@ from dcf_torch.device import resolve_device
 from dcf_torch.models.anchors import generate_anchors
 from dcf_torch.models.detector import ContFuseDetector
 from dcf_torch.models.head import decode_and_nms, flatten_predictions
+from dcf_torch.utils import trace
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
@@ -30,10 +31,12 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
 def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Detections (or any tensors) to numpy, with one wait for the
     device."""
-    host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-    if any(v.is_cuda for v in out.values()):
-        torch.cuda.synchronize()
-    return {k: v.numpy() for k, v in host.items()}
+    with trace.span("to_host"):
+        host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+        if any(v.is_cuda for v in out.values()):
+            with trace.sync():
+                torch.cuda.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
 
 
 def make_inference_fn(cfg: Config, model: ContFuseDetector, device="cuda"
@@ -65,8 +68,12 @@ def make_inference_fn(cfg: Config, model: ContFuseDetector, device="cuda"
 
     @torch.no_grad()
     def infer(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        preds = model(batch_to_device(batch, device))
-        return decode_and_nms(flatten_predictions(preds, cfg), anchors,
-                              classes, cfg)
+        with trace.span("infer.h2d"):
+            batch = batch_to_device(batch, device)
+        with trace.span("infer.forward"):
+            preds = model(batch)
+        with trace.span("infer.decode_nms"):
+            return decode_and_nms(flatten_predictions(preds, cfg), anchors,
+                                  classes, cfg)
 
     return infer

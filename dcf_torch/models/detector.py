@@ -20,6 +20,7 @@ from dcf_torch.models.fusion import ContinuousFusionLayer
 from dcf_torch.models.head import DetectionHead
 from dcf_torch.models.layers import BasicBlock
 from dcf_torch.models.resnet import ImageBackbone
+from dcf_torch.utils import trace
 
 
 class ContFuseDetector(nn.Module):
@@ -65,23 +66,31 @@ class ContFuseDetector(nn.Module):
         cfg = self.cfg
         bb = cfg.backbone
         dtype = getattr(torch, bb.dtype)
-        x = rasterize_bev_s2d(batch["points"], batch["point_mask"],
-                              cfg.voxel, dtype)
-        img_feats = (self.image_backbone(batch["image"])
-                     if cfg.with_camera else None)
+        with trace.span("forward.raster"):
+            x = rasterize_bev_s2d(batch["points"], batch["point_mask"],
+                                  cfg.voxel, dtype)
+        img_feats = None
+        if cfg.with_camera:
+            with trace.span("forward.image_backbone"):
+                img_feats = self.image_backbone(batch["image"])
 
         feats: Dict[int, torch.Tensor] = {}
         stride = 1
         for stage in range(len(bb.bev_stage_channels)):
-            for b in range(bb.bev_blocks_per_stage[stage]):
-                x = getattr(self, f"bev_stage{stage}_block{b}")(x)
+            with trace.span(f"forward.bev_stage{stage}"):
+                for b in range(bb.bev_blocks_per_stage[stage]):
+                    x = getattr(self, f"bev_stage{stage}_block{b}")(x)
             stride *= 2
             if cfg.with_fusion and stride in bb.fusion_strides:
                 si = bb.fusion_strides.index(stride)
-                fused = getattr(self, f"fusion_s{stride}")(
-                    batch["points"], batch["points_uvz"],
-                    batch["fusion_rank"][:, si],
-                    img_feats[image_stride_for(stride)])
-                x = x + fused.to(dtype)
+                with trace.span(f"forward.fusion_s{stride}"):
+                    fused = getattr(self, f"fusion_s{stride}")(
+                        batch["points"], batch["points_uvz"],
+                        batch["fusion_rank"][:, si],
+                        img_feats[image_stride_for(stride)])
+                    x = x + fused.to(dtype)
             feats[stride] = x
-        return self.head(self.fpn(feats))
+        with trace.span("forward.fpn"):
+            fpn = self.fpn(feats)
+        with trace.span("forward.head"):
+            return self.head(fpn)

@@ -29,6 +29,7 @@ from dcf_torch.config import Config
 from dcf_torch.ops.bilinear import bilinear_sample
 from dcf_torch.ops.fusion import fused_fusion, quantize_payload_xyz
 from dcf_torch.ops.knn import bin_points_dense
+from dcf_torch.utils import trace
 
 
 class ContinuousFusionLayer(nn.Module):
@@ -83,5 +84,6 @@ class ContinuousFusionLayer(nn.Module):
                            self.geo_kernel.t().contiguous(), self.geo_bias,
                            origin, cell, fus.num_neighbors,
                            fus.search_radius_cells)
+        trace.count_device("fusion.pairs", acc[..., hid])
         return (acc[..., :hid].to(dtype) @ self.out_kernel.to(dtype)
                 + acc[..., hid:].to(dtype) * self.out_bias.to(dtype))

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from dcf_torch.ops import _cuda
+from dcf_torch.utils import trace
 
 _BIG = 1e30
 
@@ -168,7 +169,11 @@ def bin_points_dense(points: torch.Tensor, mask: torch.Tensor,
     cell = torch.where(inb, (bi * H + ix) * W + iy, B * H * W).reshape(-1)
     sorted_cell, order = torch.sort(cell, stable=True)
     rank = _rank_within_runs(sorted_cell)
-    ok = (rank < capacity) & (sorted_cell < B * H * W)
+    inside = sorted_cell < B * H * W
+    ok = (rank < capacity) & inside
+    if trace.active():
+        trace.count_device("fusion.bin_eligible", inside)
+        trace.count_device("fusion.bin_dropped", inside & ~ok)
     flat = torch.where(ok, sorted_cell * capacity + rank, n_slots)  # drop
 
     data = torch.zeros((n_slots + 1, D), dtype=points.dtype, device=dev)

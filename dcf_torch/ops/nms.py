@@ -7,6 +7,8 @@ from typing import Tuple
 
 import torch
 
+from dcf_torch.utils import trace
+
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k along the last axis with the reference's tie order:
@@ -45,8 +47,11 @@ def rotated_nms_parallel(iou: torch.Tensor, scores: torch.Tensor,
     live = valid.clone()
     keep = torch.zeros_like(valid)
     for _ in range(K):
-        if not bool(live.any()):
+        with trace.sync():
+            any_live = bool(live.any())
+        if not any_live:
             break
+        trace.count("nms.rounds")
         has_live_dominator = (dominates & live[..., None, :]).any(dim=-1)
         is_max = live & ~has_live_dominator
         keep = keep | is_max

@@ -24,7 +24,12 @@ from dcf_torch.params import init_params
 from dcf_torch.train import checkpoint as ckpt
 from dcf_torch.train.state import TrainState, create_train_state
 from dcf_torch.train.step import make_train_step
+from dcf_torch.utils import trace
 from dcf_torch.utils.logging import MetricsLogger
+
+# the spans whose mean ms since the previous line each metrics line
+# carries while the tracer is enabled (`--trace PATH`)
+LOGGED_SPANS = ("loop.wait_batch", "loop.h2d", "augment", "loader.example")
 
 
 class _ProcessShard:
@@ -63,9 +68,11 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
     with `resume`, from the latest checkpoint under `workdir/checkpoints`.
     Every `log_every` steps (and at the last) the step's metrics go to
     `workdir/metrics.jsonl`, with `steps_per_sec` over the steps since the
-    previous line; every `checkpoint_every` steps (and at the last) a
-    checkpoint is written. eval_hook(state, step) runs every `eval_every`
-    steps and at the last one.
+    previous line (and, while the tracer is enabled, the mean ms of each
+    of `LOGGED_SPANS` since then, as `<span>_ms`); every
+    `checkpoint_every` steps (and at the last) a checkpoint is written.
+    eval_hook(state, step) runs every `eval_every` steps and at the last
+    one.
 
     Several processes: each loads a disjoint stride of the dataset with
     the loader seed cfg.train.seed + rank (global batch = batch_size x
@@ -93,7 +100,8 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
                     seed=t.seed + rank)
     batches = infinite_batches(loader)
     try:
-        pending = next(batches)
+        with trace.span("loop.wait_batch", step=0):
+            pending = next(batches)
         model = init_params(cfg, torch.Generator().manual_seed(t.seed),
                             device=device)
         state = create_train_state(cfg, model, seed=t.seed)
@@ -110,24 +118,35 @@ def train(cfg: Config, dataset, workdir: str, device="cuda",
         logger = MetricsLogger(os.path.join(workdir, "metrics.jsonl"))
         total = num_steps if num_steps is not None else t.num_steps
         step, t0, since = state.step, time.time(), 0
+        logged_spans = {}
         while step < total:
-            state, metrics = step_fn(state, batch_to_device(pending, device),
-                                     pack)
-            pending = next(batches)
+            with trace.span("loop.h2d", step=step + 1):
+                batch = batch_to_device(pending, device)
+            with trace.span("loop.step", step=step + 1):
+                state, metrics = step_fn(state, batch, pack)
+            del batch
+            with trace.span("loop.wait_batch", step=step + 1):
+                pending = next(batches)
             step += 1
             since += 1
             if not is_main:
                 continue
             if step % t.log_every == 0 or step == total:
-                # reading the metrics waits for the device: the rate is
-                # over finished steps
-                m = {k: float(v) for k, v in metrics.items()}
-                m["step"] = step
-                m["steps_per_sec"] = since / max(time.time() - t0, 1e-9)
-                t0, since = time.time(), 0
-                logger.log(m)
+                with trace.span("loop.log", step=step):
+                    # reading the metrics waits for the device: the rate
+                    # is over finished steps
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["step"] = step
+                    m["steps_per_sec"] = since / max(time.time() - t0, 1e-9)
+                    t0, since = time.time(), 0
+                    if trace.TRACER.on:
+                        means = trace.TRACER.mean_ms_since(LOGGED_SPANS,
+                                                           logged_spans)
+                        m.update({f"{k}_ms": v for k, v in means.items()})
+                    logger.log(m)
             if step % t.checkpoint_every == 0 or step == total:
-                path = ckpt.save_checkpoint(ckpt_dir, state, cfg)
+                with trace.span("loop.checkpoint", step=step):
+                    path = ckpt.save_checkpoint(ckpt_dir, state, cfg)
                 print(f"saved {path}")
             if eval_hook is not None and eval_every and (
                     step % eval_every == 0 or step == total):
