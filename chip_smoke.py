@@ -1707,6 +1707,28 @@ def host_core(device, smi: str, build_log: str, eval_readings, gts, dets):
                 lambda: crop_and_pad_plain(cloud, vox), equal)
             if mask.all():
                 raise RuntimeError("host core: the crop overflowed")
+        # gt-sampling's points-in-boxes test: each frame against its own
+        # boxes, the sweep against 24 boxes (gt-sampling pastes 18-28)
+        brng = np.random.default_rng(14)
+        boxes24 = np.concatenate([
+            brng.uniform([0, -30, -2], [70, 30, -1], (24, 3)),
+            brng.uniform([1, 0.5, 1.4], [5, 2, 2], (24, 3)),
+            brng.uniform(-np.pi, np.pi, (24, 1))], axis=1).astype(np.float32)
+        for cloud, boxes, unit in (
+                [(f.points, f.boxes, "a frame against its boxes")
+                 for f in frames]
+                + [(sweep, boxes24, "120000 points x 24 boxes")]):
+            hold("points_in_boxes3d", unit,
+                 lambda: native.points_in_boxes3d(cloud[:, :3], boxes),
+                 lambda: np_boxes.points_in_boxes3d(cloud[:, :3], boxes),
+                 equal, reps=(9, 1))
+        # the union over boxes, as gt-sampling asks for it
+        hold("points_in_boxes3d any_box", "120000 points x 24 boxes",
+             lambda: native.points_in_boxes3d(sweep[:, :3], boxes24,
+                                              any_box=True),
+             lambda: np_boxes.points_in_boxes3d(sweep[:, :3],
+                                                boxes24).any(axis=1),
+             equal, reps=(9, 1))
         def prepare_plain(image):
             full, scale = pre.prepare_image(image, cfg)
             return pre.s2d_image(full), scale

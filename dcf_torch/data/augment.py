@@ -21,6 +21,10 @@ per (epoch, frame) so runs are reproducible.
   stream consistent with the pasted lidar points — without it, fusion
   samples road/background pixels at pasted objects, starving the camera
   branch of augmented signal (the standard shortcut of fusion pipelines).
+  Which points lie inside which boxes (the database's crops, the ground
+  removed under pasted boxes) is decided by the compiled host core
+  (`native.points_in_boxes3d`, bit-equal to `np_boxes.points_in_boxes3d`),
+  which releases the interpreter lock, so the loader's threads run on.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from dcf_torch import native
 from dcf_torch.config import AugmentConfig
 from dcf_torch.data.synthetic import CLASS_NAMES, Frame
 from dcf_torch.geometry import np_boxes
@@ -158,8 +163,8 @@ class GTDatabase:
         for frame in dataset:
             if not len(frame.boxes):
                 continue
-            inside = np_boxes.points_in_boxes3d(frame.points[:, :3],
-                                                frame.boxes)
+            inside = native.points_in_boxes3d(frame.points[:, :3],
+                                              frame.boxes)
             for k, name in enumerate(frame.names):
                 if name not in db:
                     continue
@@ -240,8 +245,9 @@ def gt_sample_frame(frame: Frame, db: GTDatabase, cfg: AugmentConfig,
 
     # remove original points inside the pasted boxes (they were ground)
     pasted = np.stack(new_boxes)
-    inside = np_boxes.points_in_boxes3d(frame.points[:, :3],
-                                        pasted).any(axis=1)
+    with trace.span("augment.gt_sample.inside"):
+        inside = native.points_in_boxes3d(frame.points[:, :3], pasted,
+                                          any_box=True)
     points = np.concatenate([frame.points[~inside]] + new_points)
     boxes = (np.concatenate([frame.boxes, pasted]) if len(frame.boxes)
              else pasted.astype(np.float32))

@@ -1,7 +1,9 @@
 """Rotated-box helpers on the host (numpy) for training augmentation:
 a copy of the parts of `dcf.geometry.np_boxes` that gt-sampling uses
 (collision checks, points inside boxes), so augmentation draws and
-decides exactly as the JAX package's does.
+decides exactly as the JAX package's does. `points_in_boxes3d` is the
+plain version of the compiled `native.points_in_boxes3d`, which
+gt-sampling calls.
 """
 
 from __future__ import annotations

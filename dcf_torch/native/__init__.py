@@ -42,6 +42,8 @@ _SIGNATURES = {
     # boxes_a, n, boxes_b, m, out
     "dcf_rotated_iou_bev": (None, (_P, _I64, _P, _I64, _P)),
     "dcf_iou_3d": (None, (_P, _I64, _P, _I64, _P)),
+    # xyz, n, boxes, cs, m, any_box, out
+    "dcf_points_in_boxes3d": (None, (_P, _I64, _P, _P, _I64, _I64, _P)),
     # overlaps, n_det, n_gt, scores, ignored_gt, ignored_det, dc, n_dc,
     # min_overlap, thresholds, n_thresh, gt_alphas, dt_alphas, tp, fp,
     # fn, sim
@@ -264,6 +266,31 @@ def iou_3d(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
     """Pairwise 3D IoU of box7s, [N, 7] x [M, 7] -> [N, M] float64 (plain:
     `geometry.np_boxes.iou_3d`)."""
     return _pairwise("dcf_iou_3d", 7, boxes_a, boxes_b)
+
+
+def points_in_boxes3d(points: np.ndarray, boxes7: np.ndarray,
+                      any_box: bool = False) -> np.ndarray:
+    """Whether each of `points [N, >=3]` lies inside each rotated box of
+    `boxes7 [M, 7]` (x, y, z, dx, dy, dz, yaw): [N, M] bool, or with
+    `any_box` [N] bool, inside any box (plain:
+    `geometry.np_boxes.points_in_boxes3d`, then `.any(axis=1)`). The cos
+    and sin of each yaw are numpy's, taken as the plain version takes
+    them; points widen to float64 as its comparisons widen them."""
+    pts = np.asarray(points)
+    if pts.ndim != 2 or pts.shape[1] < 3:
+        raise ValueError(f"points_in_boxes3d takes [N, >=3] points, got "
+                         f"{pts.shape}")
+    xyz = _c(pts[:, :3], np.float64)
+    boxes = _c(np.reshape(boxes7, (-1, 7)), np.float64)
+    # the yaws in the plain version's layout (a column of an [M, 5] copy):
+    # numpy may take another cos or sin loop, SIMD or scalar, for a stride
+    yaw = boxes[:, [0, 1, 3, 4, 6]][:, 4]
+    cs =_c(np.stack([np.cos(yaw), np.sin(yaw)], axis=-1), np.float64)
+    n, m = len(xyz), len(boxes)
+    out = np.empty((n,) if any_box else (n, m), np.uint8)
+    library().dcf_points_in_boxes3d(_ptr(xyz), n, _ptr(boxes), _ptr(cs), m,
+                                    int(bool(any_box)), _ptr(out))
+    return out.view(bool)
 
 
 def eval_statistics(overlaps, dt_scores, ignored_gt, ignored_det,

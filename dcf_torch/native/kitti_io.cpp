@@ -151,6 +151,65 @@ void dcf_iou_3d(const double* boxes_a, int64_t n,
   }
 }
 
+// Points inside rotated 3D boxes (plain: geometry/np_boxes.py::
+// points_in_boxes3d: the rotated rectangle of points_in_bev_boxes, then
+// the z slab). xyz: [n, 3]; boxes: [m, 7] (x, y, z, dx, dy, dz, yaw); cs:
+// [m, 2] each yaw's cos and sin as numpy computed them, so nothing here
+// does trigonometry. out: [n, m] 0/1, or with any_box [n]: 1 where the
+// point lies in any box. Each test is the plain version's float64
+// expression in its order, so the answers are bit-equal.
+//
+// A square of half-side r around the box's centre, then the z slab, turn
+// most pairs away before the rotation, and neither turns away a point the
+// rotated test keeps. The slab is the plain version's own test. A point
+// whose rotated coordinates pass lies within hypot(hx, hy) of the centre
+// on either axis, give or take 20 * 2^-53 of it for the rounding of the
+// four products and two sums; r is that half-diagonal widened by 1e-9
+// relative and 1e-300 absolute (subnormals). A NaN fails both, as it
+// fails the rotated test. On gt-sampling's calls (120,000 points, 19-26
+// boxes) the square takes about a third off the loop's time.
+void dcf_points_in_boxes3d(const double* xyz, int64_t n, const double* boxes,
+                           const double* cs, int64_t m, int64_t any_box,
+                           uint8_t* out) {
+  struct Box { double x, y, c, s, hx, hy, zlo, zhi, r; };
+  std::vector<Box> bx((size_t)m);
+  for (int64_t j = 0; j < m; ++j) {
+    const double* b = boxes + j * 7;
+    Box& q = bx[(size_t)j];
+    q.x = b[0];
+    q.y = b[1];
+    q.c = cs[j * 2];
+    q.s = cs[j * 2 + 1];
+    q.hx = b[3] * 0.5 + 0.0;
+    q.hy = b[4] * 0.5 + 0.0;
+    q.zlo = b[2] - b[5] * 0.5;
+    q.zhi = b[2] + b[5] * 0.5;
+    q.r = std::hypot(q.hx, q.hy) * (1.0 + 1e-9) + 1e-300;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    const double px = xyz[i * 3], py = xyz[i * 3 + 1], pz = xyz[i * 3 + 2];
+    uint8_t hit = 0;
+    for (int64_t j = 0; j < m; ++j) {
+      const Box& q = bx[(size_t)j];
+      const double r0 = px - q.x, r1 = py - q.y;
+      bool in = std::fabs(r0) <= q.r && std::fabs(r1) <= q.r &&
+                pz >= q.zlo && pz <= q.zhi;
+      if (in) {
+        const double lx = r0 * q.c + r1 * q.s;
+        const double ly = -r0 * q.s + r1 * q.c;
+        in = std::fabs(lx) <= q.hx && std::fabs(ly) <= q.hy;
+      }
+      if (!any_box) {
+        out[i * m + j] = in;
+      } else if (in) {
+        hit = 1;
+        break;
+      }
+    }
+    if (any_box) out[i] = hit;
+  }
+}
+
 // The devkit's per-frame matching statistics at every score threshold
 // (plain: eval/kitti_eval.py::_frame_statistics, once per threshold).
 //

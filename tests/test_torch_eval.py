@@ -313,7 +313,9 @@ def test_evaluator_matches_jax(case):
 def test_matching_statistics_match_jax():
     """`_frame_statistics` on random inputs against the JAX twin and, where
     it is built, the C++ core behind `dcf.native.eval_statistics`."""
+    import jax_native_lib
     from dcf import native
+    jax_native_lib.load()
     rng = np.random.default_rng(0)
     for _ in range(40):
         d, g = rng.integers(0, 12, 2)
@@ -359,7 +361,9 @@ def test_thresholds_and_overlaps_match_jax():
 def test_host_iou_matches_jax():
     """The float64 host IoUs: bit-equal to `dcf.geometry.np_boxes`, and
     within 1e-12 of `dcf.native` (C++) where it is built."""
+    import jax_native_lib
     from dcf import native
+    jax_native_lib.load()
     rng = np.random.default_rng(2)
     n = 60
     boxes = np.stack([rng.uniform(0, 12, n), rng.uniform(-6, 6, n),

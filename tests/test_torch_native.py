@@ -25,6 +25,7 @@ import dcf_torch.config as tcfg
 import dcf_torch.data.preprocess as tpre
 import dcf_torch.data.synthetic as tsyn
 import dcf_torch.data.voxelize as tvox
+import jax_native_lib
 from dcf import native as jnative
 from dcf_torch import native
 from dcf_torch.data import png
@@ -34,6 +35,13 @@ from dcf_torch.geometry import np_boxes
 torch.set_num_threads(1)
 
 CONFIGS = ["tiny_config", "multi_scale_config"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """`dcf.native`'s library, built and loaded whole before any test
+    compares with it (`jax_native_lib`)."""
+    jax_native_lib.load()
 
 
 def _frame(seed):
@@ -141,6 +149,7 @@ def test_image_resize_s2d_refuses_other_images():
                                 np.ones(5, bool), np.zeros((4, 3)), [2],
                                 0, 0, 1, 4, 4, 8, 8),
     lambda: native.iou_3d(np.zeros((2, 5)), np.zeros((2, 7))),
+    lambda: native.points_in_boxes3d(np.zeros((5, 2)), np.zeros((1, 7))),
     lambda: native.eval_statistics(np.zeros((3, 2)), np.zeros(3),
                                    np.zeros(2), np.zeros(2), None, 0.5,
                                    [0.5]),
@@ -209,6 +218,170 @@ def test_fusion_host_arrays(cfg_name, seed):
                              vox.grid_y, cfg.image.height, cfg.image.width,
                              fusion_row_cum_len(jcf))
     np.testing.assert_array_equal(got["fusion_rank"], j[0])
+
+
+# ---- points inside boxes (gt-sampling) ----
+
+def _sweep(seed, total=120_000):
+    """A `make_varied_frame` sweep padded to `total` points as the
+    benchmark's traffic pads one (thirds behind the vehicle, beyond the
+    ROI and above it), then shuffled."""
+    f = _frame(seed)
+    rng = np.random.default_rng([11, seed])
+    n = total - len(f.points)
+    k = [n // 3, n // 3, n - 2 * (n // 3)]
+    pad = np.concatenate([
+        rng.uniform([-70.0, -40.0, -2.5], [-0.5, 40.0, 0.5], (k[0], 3)),
+        rng.uniform([71.0, -60.0, -2.5], [120.0, 60.0, 0.5], (k[1], 3)),
+        rng.uniform([0.5, -39.0, 1.2], [69.0, 39.0, 3.0], (k[2], 3))])
+    pad = np.concatenate([pad, rng.uniform(0, 1, (n, 1))], -1)
+    pts = np.concatenate([f.points, pad.astype(np.float32)])
+    return dataclasses.replace(f, points=pts[rng.permutation(len(pts))])
+
+
+def _on_faces_and_corners(boxes7, per_box=400, seed=0):
+    """float32 points placed on each box's faces, edges and corners (the
+    local coordinates +-h or on the slab's planes, rotated and rounded to
+    float32), and a hair inside and outside them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for x, y, z, dx, dy, dz, yaw in np.asarray(boxes7, np.float64):
+        h = np.array([dx, dy, dz]) * 0.5
+        loc = rng.uniform(-1, 1, (per_box, 3)) * h
+        axis = rng.integers(0, 3, per_box)
+        loc[np.arange(per_box), axis] = np.sign(
+            rng.uniform(-1, 1, per_box)) * h[axis]
+        loc[: per_box // 4] = (np.sign(rng.uniform(-1, 1, (per_box // 4, 3)))
+                               * h)                          # corners
+        loc *= rng.choice([1.0, 1 - 1e-7, 1 + 1e-7], (per_box, 1))
+        c, s = np.cos(yaw), np.sin(yaw)
+        out.append(np.stack([x + c * loc[:, 0] - s * loc[:, 1],
+                             y + s * loc[:, 0] + c * loc[:, 1],
+                             z + loc[:, 2]], -1))
+    pts = np.concatenate(out).astype(np.float32)
+    return np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], -1)
+
+
+def _pib_case(name):
+    """(points [N, 4] f32, boxes [M, 7] f32) of one case."""
+    rng = np.random.default_rng(7)
+    if name.startswith("random"):
+        m = int(name.split("-")[1])
+        return _sweep(3).points, _boxes7(rng, m).astype(np.float32)
+    if name == "faces":
+        boxes = np.array([(10, 5, -1, 4, 2, 1.5, 0),
+                          (20.5, -3.25, -0.75, 3.9, 1.6, 1.56, 0.3),
+                          (7, 7, -1.2, 0.8, 0.6, 1.7, -2.2)],
+                         np.float32)
+        boxes = np.concatenate([boxes, _boxes7(rng, 5).astype(np.float32)])
+        return _on_faces_and_corners(boxes), boxes
+    if name == "yaws":
+        yaws = [0.0, np.pi / 2, -np.pi / 2, np.pi, -np.pi]
+        yaws += [np.nextafter(np.float32(a), d) for a in yaws
+                 for d in (np.float32(-4), np.float32(4))]
+        boxes = np.array([(3 * i, -2.0 * i, -1.0, 4.0, 1.5, 1.5, a)
+                          for i, a in enumerate(yaws)], np.float32)
+        return _on_faces_and_corners(boxes, seed=1), boxes
+    if name == "rounding":
+        # float64: box j's corner is where the plain version's rounding
+        # puts point j, so any other rounding of the rotation misses it
+        n = 300
+        pts = np.concatenate([rng.uniform(-40, 40, (n, 2)),
+                              rng.uniform(-2, 0, (n, 1)), np.zeros((n, 1))],
+                             -1)
+        boxes = np.zeros((n, 7))
+        boxes[:, :2] = pts[:, :2] + rng.uniform(-3, 3, (n, 2))
+        boxes[:, 2], boxes[:, 5] = -1.0, 4.0
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, n)
+        rel = pts[:, :2] - boxes[:, :2]
+        c, s = np.cos(boxes[:, 6]), np.sin(boxes[:, 6])
+        boxes[:, 3] = 2 * np.abs(rel[:, 0] * c + rel[:, 1] * s)
+        boxes[:, 4] = 2 * np.abs(-rel[:, 0] * s + rel[:, 1] * c)
+        return pts, boxes
+    if name == "zero-size":
+        boxes = np.array([(1, 2, -1, 0, 0, 0, 0.4),
+                          (4, 4, -1, 0, 2, 1, 0),
+                          (6, 6, -1, 2, 2, 0, 1.1),
+                          (8, 8, -1, 3, 1, 1, 0)], np.float32)
+        pts = np.array([[1, 2, -1, 0], [4, 4, -1, 0], [4, 4.5, -0.8, 0],
+                        [6, 6, -1, 0], [6.5, 6, -1, 0], [8, 8, -1, 0]],
+                       np.float32)
+        return pts, boxes
+    if name == "non-finite":
+        boxes = np.array([(0, 0, 0, 2, 2, 2, 0),
+                          (5, 0, 0, np.inf, 2, 2, 0),
+                          (0, 5, 0, 2, np.nan, 2, 0),
+                          (9, 9, 0, 2, 2, 2, np.nan)], np.float32)
+        pts = np.array([[0, 0, 0, 0], [np.nan, 0, 0, 0], [0, 0, np.nan, 0],
+                        [np.inf, 0, 0, 0], [50, 0, 0, 0], [5, 0.5, 0.5, 0],
+                        [0, 5, 0, 0], [9, 9, 0, 0]], np.float32)
+        return pts, boxes
+    if name == "empty-points":
+        return np.zeros((0, 4), np.float32), _boxes7(rng, 3)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", ["random-0", "random-1", "random-30",
+                                  "faces", "yaws", "rounding", "zero-size",
+                                  "non-finite", "empty-points"])
+def test_points_in_boxes3d(case):
+    """The compiled test, for every pair and as the union over boxes, bit
+    for bit against `np_boxes.points_in_boxes3d`."""
+    points, boxes = _pib_case(case)
+    with np.errstate(invalid="ignore"):
+        want = np_boxes.points_in_boxes3d(points[:, :3], boxes)
+    got = native.points_in_boxes3d(points[:, :3], boxes)
+    assert got.dtype == bool and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    got_any = native.points_in_boxes3d(points, boxes, any_box=True)
+    np.testing.assert_array_equal(got_any, want.any(axis=1))
+    if case in ("faces", "yaws"):            # both answers on the faces
+        assert 0.2 < want.any(axis=1).mean() < 0.95
+    if case == "random-30":
+        assert want.any(axis=1).sum() > 100
+    if case == "rounding":                   # every point in its own box
+        assert want[np.arange(len(want)), np.arange(len(want))].all()
+
+
+def test_points_in_boxes3d_gt_sampling_matches_plain(monkeypatch):
+    """`GTDatabase.build` and `gt_sample_frame` with the compiled test give
+    the databases and frames of the plain numpy test, array for array, on
+    120,000-point sweeps at two seeds."""
+    import dcf_torch.data.augment as taug
+
+    def plain(points, boxes7, any_box=False):
+        inside = np_boxes.points_in_boxes3d(points, boxes7)
+        return inside.any(axis=1) if any_box else inside
+
+    aug = tcfg.lidar_only_config().augment
+    for seed in (0, 1):
+        pool = [_sweep(100 * seed + i) for i in range(6)]
+        frames = [_sweep(100 * seed + 50 + i) for i in range(3)]
+        results = []
+        for fn in (native.points_in_boxes3d, plain):
+            monkeypatch.setattr(native, "points_in_boxes3d", fn)
+            db = taug.GTDatabase.build(pool)
+            out = [taug.gt_sample_frame(f, db, aug,
+                                        np.random.default_rng([seed, i]))
+                   for i, f in enumerate(frames)]
+            results.append((db, out))
+        (db, out), (db_p, out_p) = results
+        assert list(db.db) == list(db_p.db)
+        for name in db.db:
+            assert len(db.db[name]) == len(db_p.db[name])
+            for e, e_p in zip(db.db[name], db_p.db[name]):
+                assert set(e) == set(e_p)
+                for key in e:
+                    np.testing.assert_array_equal(e[key], e_p[key])
+        for f, f_p, src in zip(out, out_p, frames):
+            assert len(f.boxes) > len(src.boxes)      # it pasted some
+            assert len(f.points) != len(src.points)
+            for field in ("points", "image", "boxes", "labels", "difficulty",
+                          "truncated", "occluded", "alpha", "bbox2d"):
+                np.testing.assert_array_equal(getattr(f, field),
+                                              getattr(f_p, field),
+                                              err_msg=field)
+            assert f.names == f_p.names
 
 
 # ---- evaluation ----
