@@ -11,7 +11,7 @@ import json
 import os
 import sys
 import tempfile
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -39,9 +39,11 @@ def forbidden_modules(modules=None) -> list:
 
 @dataclasses.dataclass
 class Env:
-    """What a run needs: the cell's configuration and mix, the seed and
-    window, and hooks for the tests."""
+    """What a run needs: the cell's model family (its module) and
+    configuration, its mix, the seed and window, and hooks for the
+    tests."""
 
+    family: Any
     config_json: str
     traffic: Dict
     seed: int
@@ -77,21 +79,22 @@ def execute(bench: Dict, cell_name: str, seed: int, seconds: float,
     `run.py` as the last line)."""
     cell = registry.cell(bench, cell_name)
     config = registry.config(cell["config"], base)
+    family = registry.family(config.get("family"), base)
     traffic = registry.traffic(cell["traffic"], base)
     mod = mode_module(traffic["mode"])
     device = torch.device(device)
     with tempfile.TemporaryDirectory() as tmpdir:
-        env = Env(config_json=json.dumps(config["config"]), traffic=traffic,
-                  seed=seed, seconds=seconds, trace=trace, device=device,
-                  tmpdir=tmpdir, fault=fault)
+        env = Env(family=family, config_json=json.dumps(config["config"]),
+                  traffic=traffic, seed=seed, seconds=seconds, trace=trace,
+                  device=device, tmpdir=tmpdir, fault=fault)
         out = mod.run(env)
-        numbers = mod.compare(out, device)
+        numbers = family.compare(traffic["mode"], out, device)
     lim = limits(config, traffic["mode"])
     checks = {k: {"value": numbers[k], "limit": lim[k]} for k in lim}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     metrics = {}
     if trace:
-        ctx = Context(out, traffic, config)
+        ctx = Context(out, traffic, config, family)
         for m in registry.per_layer(bench, cell_name):
             value = registry.metric_reader(m["name"], base).read(ctx)
             if value is not None:
@@ -104,6 +107,8 @@ def execute(bench: Dict, cell_name: str, seed: int, seconds: float,
     result = {"correct": correct, "attempted": out["attempted"],
               "failed": out["failed"], "metrics": metrics,
               "device": device_info(device, out["memory_peak"])}
+    if "window_steps" in out:
+        result["window_steps"] = out["window_steps"]
     if trace and out["profile"] is not None:
         p = out["profile"]
         result["device"]["busy_s"] = p["busy_s"]
@@ -124,16 +129,22 @@ def device_info(device, memory_peak: int) -> Dict:
 
 class Context:
     """What a per-layer metric reader reads: the run's spans, its
-    profiled sub-window and op ranges, and the configuration (the
-    reference's copy, for the frozen arithmetic)."""
+    profiled sub-window and op ranges, the model family, and the
+    configuration (the family's reference copy, for the frozen
+    arithmetic)."""
 
-    def __init__(self, out: Dict, traffic: Dict, config: Dict):
-        from perfbench.reference.config import Config
+    def __init__(self, out: Dict, traffic: Dict, config: Dict, family):
         self.spans = out["spans"]
         self.profile = out["profile"]
         self.ranges = out["ranges"]
         self.traffic = traffic
-        self.cfg = Config.from_json(json.dumps(config["config"]))
+        self.family = family
+        self.cfg = family.reference_config(json.dumps(config["config"]))
+
+    def flops_per_frame(self) -> float:
+        """Model FLOPs of one frame of this cell's mode (the family's
+        frozen count)."""
+        return self.family.flops_per_frame(self.cfg, self.traffic["mode"])
 
     def device_ms_per(self, name: str, per: str) -> Optional[float]:
         """Mean device ms of span `name` per frame or step, or None."""

@@ -1,8 +1,8 @@
 """Share of its roofline that the fusion forward reaches when serving:
-the least time its work needs (the bytes of `serve._fusion_bytes` at
-3.35 TB/s, counted from each call's inputs; its operations need less)
-over the device time that the profiled sub-window attributes to the
-op's range."""
+the least time its work needs (the bytes of `_fusion_bytes` in
+`families/contfuse.py` at 3.35 TB/s, counted from each call's inputs;
+its operations need less) over the device time that the profiled
+sub-window attributes to the op's range."""
 
 from perfbench.flops import H100_HBM_BYTES_PER_S
 

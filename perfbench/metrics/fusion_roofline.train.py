@@ -1,6 +1,6 @@
 """Share of its roofline that the fusion forward and backward reach when
-training: the least time their work needs (the bytes of
-`train._fwd_bytes` and `train._bwd_bytes` at 3.35 TB/s) over the device
+training: the least time their work needs (the bytes of `_fwd_bytes` and
+`_bwd_bytes` in `families/contfuse.py` at 3.35 TB/s) over the device
 time that the profiled sub-window attributes to both ops' ranges."""
 
 from perfbench.flops import H100_HBM_BYTES_PER_S

@@ -1,6 +1,6 @@
-"""Model FLOPs of the frames served in the profiled sub-window (the
-frozen `inference_flops_per_frame`) per second, over the bf16 peak of
-989 TFLOP/s."""
+"""Model FLOPs of the frames served in the profiled sub-window (the model
+family's frozen count of a served frame) per second, over the bf16 peak
+of 989 TFLOP/s."""
 
 from perfbench import flops
 
@@ -13,6 +13,5 @@ def read(ctx):
     p = ctx.profile
     if p is None or not p["frames"]:
         return None
-    per_frame = flops.inference_flops_per_frame(ctx.cfg)["total"]
-    return 100.0 * per_frame * p["frames"] / p["window_s"] \
+    return 100.0 * ctx.flops_per_frame() * p["frames"] / p["window_s"] \
         / flops.H100_PEAK_BF16_FLOPS

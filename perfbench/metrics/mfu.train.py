@@ -1,6 +1,6 @@
-"""Model FLOPs of the frames trained in the profiled sub-window (the
-frozen `train_flops_per_frame`) per second, over the bf16 peak of
-989 TFLOP/s."""
+"""Model FLOPs of the frames trained in the profiled sub-window (the model
+family's frozen count of a trained frame) per second, over the bf16 peak
+of 989 TFLOP/s."""
 
 from perfbench import flops
 
@@ -13,5 +13,5 @@ def read(ctx):
     p = ctx.profile
     if p is None or not p["frames"]:
         return None
-    return 100.0 * flops.train_flops_per_frame(ctx.cfg) * p["frames"] \
-        / p["window_s"] / flops.H100_PEAK_BF16_FLOPS
+    return 100.0 * ctx.flops_per_frame() * p["frames"] / p["window_s"] \
+        / flops.H100_PEAK_BF16_FLOPS

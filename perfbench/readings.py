@@ -9,7 +9,7 @@ cell runs it (the lower readings) or, with `--fault`, of the program with
 a fault of `faults.py` planted. On the first N seeds (`--control N`) the
 line also holds the control's numbers on the same frames or batches: the
 reference with its convs rounded through float8 put in the program's
-place.
+place (the model family's `control`).
 """
 
 import argparse
@@ -20,35 +20,6 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def worst_leaves(prog, ref, names, n=3):
-    """The leaves with the widest gaps, for the look at a reading."""
-    import numpy as np
-    out = {}
-    for key in ("g1", "change"):
-        p, r = np.asarray(prog[key]), np.asarray(ref[key])
-        scale = np.maximum(r, np.median(r))
-        keep = ref["g1"] >= 1e-3 * np.median(ref["g1"])
-        gap = np.where(keep, np.abs(p - r) / scale, 0.0)
-        out[key + "_worst"] = [[names[i], float(p[i]), float(r[i]),
-                                float(gap[i])]
-                               for i in np.argsort(-gap)[:n]]
-    out["losses"] = [list(map(float, prog["losses"])),
-                     list(map(float, ref["losses"]))]
-    return out
-
-
-def control_numbers(mod, mode, out, device):
-    """The control's numbers on the run's own frames or batches."""
-    if mode == "serve":
-        return mod.compare(out, device, control=True)
-    low = mod.reference_steps(out["ref_cfg"], out["weights"], out["replayed"],
-                              device, quant="fp8")
-    numbers = {"batch_diff": 0.0}
-    numbers.update(mod.compare_numbers(low, out["reference"]))
-    numbers.update(worst_leaves(low, out["reference"], list(out["weights"])))
-    return numbers
 
 
 def main(argv=None) -> int:
@@ -70,6 +41,7 @@ def main(argv=None) -> int:
         name, mix = args.workload.split(".", 1)
         cell = {"config": name, "traffic": mix}
     config = registry.config(cell["config"])
+    family = registry.family(config["family"])
     traffic = registry.traffic(cell["traffic"])
     mode = traffic["mode"]
     mod = harness.mode_module(mode)
@@ -81,20 +53,19 @@ def main(argv=None) -> int:
     for n, seed in enumerate(seeds):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmpdir:
-            env = harness.Env(config_json=json.dumps(config["config"]),
+            env = harness.Env(family=family,
+                              config_json=json.dumps(config["config"]),
                               traffic=traffic, seed=seed,
                               seconds=args.seconds, trace=False,
                               device=device, tmpdir=tmpdir, fault=fault)
             out = mod.run(env)
-            numbers = mod.compare(out, device)
-            if mode == "train":
-                numbers.update(worst_leaves(out, out["reference"],
-                                            list(out["weights"])))
+            numbers = family.compare(mode, out, device)
+            numbers.update(family.look(mode, out))
             line = {"workload": args.workload, "seed": seed,
                     "fault": args.fault, "numbers": numbers,
                     "e2e": out["e2e"]}
             if n < args.control:
-                line["control"] = control_numbers(mod, mode, out, device)
+                line["control"] = family.control(mode, out, device)
         line["seconds"] = time.perf_counter() - t0
         print(json.dumps(line), flush=True)
         del out

@@ -1,10 +1,15 @@
 """Finds a cell's configuration, traffic mix and per-layer metric readers
 by the names in `BENCHMARK.json`, and checks the names' character rules.
 
-Layout (a later cell, mix or metric is a new file, never an edit):
-  perfbench/configs/<config>.json   one configuration each
+Layout (a later cell, mix, metric or model family is a new file, never an
+edit):
+  perfbench/configs/<config>.json   one configuration each; its `family`
+                                    names the module that runs it
   perfbench/traffic/<mix>.json      one traffic mix each
   perfbench/metrics/<metric>.py     one per-layer metric reader each
+  perfbench/families/<family>.py    one model family each (the program's
+                                    and the reference's side of a cell;
+                                    interface in `families/__init__.py`)
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ def check_keys(data: Dict, keys, what: str) -> None:
                          f"{sorted(keys)}")
 
 
-CONFIG_KEYS = ("source", "reduced", "assumed", "config", "limits")
+CONFIG_KEYS = ("family", "source", "reduced", "assumed", "config", "limits")
 
 
 def load_benchmark(root: str) -> Dict:
@@ -64,9 +69,10 @@ def _json(base: str, kind: str, name: str) -> Dict:
 
 
 def config(name: str, base: str = HERE) -> Dict:
-    """The configuration file `configs/<name>.json`: the `Config` as run
-    (`config`), the limits of `correct` by mode (`limits`), and for the
-    reader its `source`, `reduced` and `assumed`."""
+    """The configuration file `configs/<name>.json`: the model family that
+    runs it (`family`), its configuration as run (`config`), the limits of
+    `correct` by mode (`limits`), and for the reader its `source`,
+    `reduced` and `assumed`."""
     data = _json(base, "configs", name)
     check_keys(data, CONFIG_KEYS, f"configs/{name}.json")
     return data
@@ -77,15 +83,35 @@ def traffic(name: str, base: str = HERE) -> Dict:
     return _json(base, "traffic", name)
 
 
-def metric_reader(name: str, base: str = HERE):
-    """The module `metrics/<name>.py`: LAYER, UNIT, MOVES and
-    read(ctx) -> float or None."""
-    path = os.path.join(base, "metrics", check_name(name) + ".py")
+def _module(base: str, kind: str, name: str):
+    path = os.path.join(base, kind, check_name(name) + ".py")
     spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"perfbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str, base: str = HERE):
+    """The module `metrics/<name>.py`: LAYER, UNIT, MOVES and
+    read(ctx) -> float or None."""
+    return _module(base, "metrics", name)
+
+
+def families(base: str = HERE) -> List[str]:
+    """The model families that have a module under `families/`."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(base, "families"))
+                  if f.endswith(".py") and not f.startswith("_"))
+
+
+def family(name: str, base: str = HERE):
+    """The module `families/<name>.py` (the interface is in
+    `families/__init__.py`); refuses a name that has none."""
+    known = families(base)
+    if name not in known:
+        raise ValueError(f"no model family {name!r}: the families are "
+                         f"{known} (perfbench/families/<family>.py)")
+    return _module(base, "families", name)
 
 
 def _applies(metric: Dict, cell_name: str) -> bool:

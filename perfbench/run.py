@@ -5,11 +5,12 @@
 
 Runs one cell of `BENCHMARK.json` on this machine's card: set-up (inputs
 and weights from the seed, warm-up), a window of `--seconds`, then the
-comparison of what the window produced with the plain reference in
-`perfbench/reference/`. Prints the compared numbers with their limits as
-the last lines of standard error and one JSON object as the last line of
-standard output: the end-to-end metrics with `--trace 0`, the per-layer
-metrics (and the profiled sub-window's breakdown) with `--trace 1`.
+comparison of what the window produced with the plain reference of the
+configuration's model family (`perfbench/families/`). Prints the compared
+numbers with their limits as the last lines of standard error and one JSON
+object as the last line of standard output: the end-to-end metrics with
+`--trace 0`, the per-layer metrics (and the profiled sub-window's
+breakdown) with `--trace 1`.
 Exits non-zero, with no result, without enough CUDA cards, or if JAX or
 the JAX package was loaded.
 """

@@ -24,7 +24,7 @@ def tiny_base(tmp_path_factory):
     from perfbench.reference.config import tiny_config
     base = tmp_path_factory.mktemp("bench")
     src = os.path.join(ROOT, "perfbench")
-    for d in ("configs", "traffic", "metrics"):
+    for d in ("configs", "traffic", "metrics", "families"):
         shutil.copytree(os.path.join(src, d), base / d)
     with open(base / "configs" / "contfuse-ms.json") as f:
         full = json.load(f)

@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from perfbench import faults, harness, registry
-from perfbench import serve as serve_mode
-from perfbench import train as train_mode
+
+contfuse = registry.family("contfuse")
 
 
 def _numbers(base, bench, cell, seed, **kw):
@@ -20,12 +20,14 @@ def _numbers(base, bench, cell, seed, **kw):
     traffic = registry.traffic(c["traffic"], base)
     mod = harness.mode_module(traffic["mode"])
     with tempfile.TemporaryDirectory() as tmpdir:
-        env = harness.Env(config_json=json.dumps(config["config"]),
+        env = harness.Env(family=registry.family(config["family"], base),
+                          config_json=json.dumps(config["config"]),
                           traffic=traffic, seed=seed, seconds=0.5,
                           trace=False, device=torch.device("cpu"),
                           tmpdir=tmpdir, **kw)
         out = mod.run(env)
-        return out, mod.compare(out, torch.device("cpu")), config
+        return (out, env.family.compare(traffic["mode"], out,
+                                        torch.device("cpu")), config)
 
 
 def _fails(numbers, limits):
@@ -36,7 +38,7 @@ def test_serve_control_fails(tiny_base):
     base, bench = tiny_base
     for seed in (5, 2 ** 31 + 3):
         out, ok, config = _numbers(base, bench, "tiny.serve", seed)
-        ctl = serve_mode.compare(out, torch.device("cpu"), control=True)
+        ctl = contfuse.serve_compare(out, torch.device("cpu"), control=True)
         lim = config["limits"]["serve"]
         assert not _fails(ok, lim), ok
         assert _fails(ctl, lim), ctl
@@ -49,13 +51,13 @@ def test_train_control_fails(tiny_base, seed):
     out, ok, config = _numbers(base, bench, "tiny.train", seed)
     lim = config["limits"]["train"]
     assert not _fails(ok, lim), ok
-    batches = train_mode.replay_batches(out["ref_cfg"], out["pool_ref"], 3)
-    ref = train_mode.reference_steps(out["ref_cfg"], out["weights"], batches,
-                                     torch.device("cpu"))
-    low = train_mode.reference_steps(out["ref_cfg"], out["weights"], batches,
-                                     torch.device("cpu"), quant="fp8")
+    batches = contfuse.replay_batches(out["ref_cfg"], out["pool_ref"], 3)
+    ref = contfuse.reference_steps(out["ref_cfg"], out["weights"], batches,
+                                   torch.device("cpu"))
+    low = contfuse.reference_steps(out["ref_cfg"], out["weights"], batches,
+                                   torch.device("cpu"), quant="fp8")
     assert _fails({"batch_diff": 0.0,
-                   **train_mode.compare_numbers(low, ref)}, lim)
+                   **contfuse.compare_numbers(low, ref)}, lim)
 
 
 @pytest.mark.parametrize("cell, fault", [

@@ -8,15 +8,17 @@ import pytest
 from perfbench import flops, registry
 from perfbench.reference import config
 
+contfuse = registry.family("contfuse")
+
 
 @pytest.mark.parametrize("factory, infer_g, train_g", [
     (config.multi_scale_config, 179.1, 537.3),
     (config.lidar_only_config, 140.5, 421.4)])
 def test_flops_per_frame(factory, infer_g, train_g):
     cfg = factory()
-    assert flops.inference_flops_per_frame(cfg)["total"] / 1e9 == \
+    assert contfuse.inference_flops_per_frame(cfg)["total"] / 1e9 == \
         pytest.approx(infer_g, abs=0.05)
-    assert flops.train_flops_per_frame(cfg) / 1e9 == \
+    assert contfuse.flops_per_frame(cfg, "train") / 1e9 == \
         pytest.approx(train_g, abs=0.05)
 
 
@@ -27,9 +29,9 @@ def test_flops_of_the_config_files(name, infer_g, train_g):
     (residual groups of 2, 4, 6, 6 blocks)."""
     cfg = config.Config.from_json(json.dumps(registry.config(name)["config"]))
     assert cfg.backbone.bev_blocks_per_stage == (2, 4, 6, 6)
-    assert flops.inference_flops_per_frame(cfg)["total"] / 1e9 == \
+    assert contfuse.inference_flops_per_frame(cfg)["total"] / 1e9 == \
         pytest.approx(infer_g, abs=0.05)
-    assert flops.train_flops_per_frame(cfg) / 1e9 == \
+    assert contfuse.flops_per_frame(cfg, "train") / 1e9 == \
         pytest.approx(train_g, abs=0.05)
 
 

@@ -58,7 +58,8 @@ def test_a_run_loads_neither():
     forbidden module (in a fresh interpreter)."""
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import perfbench.serve, perfbench.train, perfbench.readings\n"
-            "import perfbench.harness as h\n"
+            "import perfbench.harness as h, perfbench.registry as r\n"
+            "r.family('contfuse')\n"
             "import dcf_torch.train.loop, dcf_torch.eval.inference\n"
             "import dcf_torch.quant\n"
             "print(h.forbidden_modules())" % ROOT)
@@ -66,3 +67,19 @@ def test_a_run_loads_neither():
                          text=True, timeout=300, check=True,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("name", ["serve.py", "train.py"])
+def test_modes_name_no_family(name):
+    """The modes keep what every detector shares: they import nothing of
+    the program or of a family's reference, and name no ContFuse part."""
+    path = os.path.join(BENCH, name)
+    assert not {"dcf_torch", "dcf"} & set(_imports(path))
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            assert not node.module.startswith("perfbench.reference"), path
+            assert "reference" not in [a.name for a in node.names], path
+    text = open(path).read().lower()
+    for word in ("contfuse", "fusion", "image_backbone", "clip"):
+        assert word not in text, (name, word)

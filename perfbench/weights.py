@@ -2,17 +2,18 @@
 program and the plain reference.
 
 The scheme is `dcf_torch.params.init_params`'s (commit fab139f):
-lecun-normal kernels truncated at two sigma, GroupNorm scale 1 and bias
-0, zero biases, the class-logit bias at the 0.01 prior. All random
-values come from one `torch.randn` on the device, drawn by a generator
-seeded with the run's seed, and are cut into the parameters in the
-order of the reference model's `named_parameters`.
+lecun-normal kernels truncated at two sigma, and a constant for every
+other leaf. Which leaves are kernels, with which fan-in, and the
+constants are the model family's (`leaf_init`). All random values come
+from one `torch.randn` on the device, drawn by a generator seeded with
+the run's seed, and are cut into the parameters in the order of the
+reference model's `named_parameters`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -20,46 +21,44 @@ from torch import nn
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 _TRUNC = 0.87962566103423978     # std of a unit normal truncated at 2
 
+# (owning module, leaf name, full name, shape) -> ("normal", fan_in) or
+# ("const", value)
+LeafInit = Callable[[nn.Module, str, str, Tuple[int, ...]],
+                    Tuple[str, float]]
 
-def _fan_in(module: nn.Module, leaf: str, shape) -> int:
+
+def dense_fan_in(module: nn.Module, leaf: str, shape) -> int:
+    """The fan-in of a Conv2d's or Linear's weight, else 0."""
     if isinstance(module, nn.Conv2d) and leaf == "weight":
         return shape[1] * shape[2] * shape[3]
     if isinstance(module, nn.Linear) and leaf == "weight":
         return shape[1]
-    if leaf == "geo_kernel":
-        return 4
-    if leaf == "out_kernel":
-        return shape[0]
     return 0
 
 
-def make_weights(ref_model: nn.Module, seed: int, device) -> Dict[str,
-                                                               torch.Tensor]:
+def make_weights(ref_model: nn.Module, seed: int, device,
+                 leaf_init: LeafInit) -> Dict[str, torch.Tensor]:
     """{parameter name: float32 tensor on `device`} for a detector with
-    the reference model's parameter names (the port's are the same)."""
+    the reference model's parameter names (the program's are the same)."""
     modules = dict(ref_model.named_modules())
     plan, total = [], 0
     for name, p in ref_model.named_parameters():
         owner, _, leaf = name.rpartition(".")
-        fan = _fan_in(modules[owner], leaf, tuple(p.shape))
-        plan.append((name, tuple(p.shape), fan, total))
-        if fan:
+        kind, arg = leaf_init(modules[owner], leaf, name, tuple(p.shape))
+        plan.append((name, tuple(p.shape), kind, arg, total))
+        if kind == "normal":
             total += p.numel()
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     noise = torch.randn(total, generator=g, device=device).clamp_(-2.0, 2.0)
     out = {}
-    for name, shape, fan, off in plan:
+    for name, shape, kind, arg, off in plan:
         n = math.prod(shape)
-        if fan:
-            std = math.sqrt(1.0 / fan) / _TRUNC
+        if kind == "normal":
+            std = math.sqrt(1.0 / arg) / _TRUNC
             out[name] = (noise[off:off + n] * std).reshape(shape)
-        elif name.endswith("GroupNorm_0.weight"):
-            out[name] = torch.ones(shape, device=device)
-        elif name == "head.cls.bias":
-            out[name] = torch.full(shape, PRIOR_BIAS, device=device)
         else:
-            out[name] = torch.zeros(shape, device=device)
+            out[name] = torch.full(shape, float(arg), device=device)
     return out
 
 
