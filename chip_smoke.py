@@ -126,7 +126,22 @@ Phases, each printed on its own line with the seconds elapsed:
      frames, the int8 evaluation, in a workdir removed after: both JSON
      files with the JAX script's keys and APs in [0, 1], and the
      launches of every training step, served batch and calibration
-     batch (the `generalization` path).
+     batch (the `generalization` path);
+ 16. PointPillars: pillarization and the PFN fused with its scatter
+     against their plain versions on the card at the KITTI car network's
+     shapes (P = 12,000 pillars of N = 100 points, C = 64, a bf16
+     432 x 496 canvas), bit-equal, on frames of 4,000 / 11,000 / 18,000
+     ground points (the serving mix's range; the pillar cap binds on the
+     last), a crop's full 24,576 points spread over the ROI (the pillar
+     cap binds hard) and heaped into 200 pillars (the slot cap binds);
+     kernel ms from a CUDA graph, plain ms, and the bound of each from
+     the bytes the benchmark's roofline readers count
+     (`perfbench/families/pointpillars.py`); then 8 frames of 4,000 to
+     18,000 ground points served through `make_inference_fn` with seeded
+     weights: 1 pillarize, 1 PFN and 1 clip launch a frame (the
+     `pointpillars` path), p50 / p95 ms, and, served again with the
+     program's tracer on, host syncs a frame no more than NMS rounds + 1
+     (pillarization adds none) and the pillar counters.
 
 Then one JSON line describing every kernel (launches: the sum over the
 paths, and per path), and last the line `{"ok": true, "device": {...}}`.
@@ -2119,6 +2134,183 @@ def generalization():
     return launches
 
 
+PP_GROUND = (4000, 11000, 18000)   # the serving mix's ground points
+PP_HEAPED = 200                    # pillars the heaped cloud fills
+
+
+def pp_clouds(cfg):
+    """Phase 16's cropped clouds ([1, Pts, 4] float32, [1, Pts] bool, on
+    the CPU): three synthetic frames, then the crop's full point count
+    spread over the ROI and heaped into PP_HEAPED pillars."""
+    import torch
+    from dcf_torch.data.synthetic import make_varied_frame
+    from dcf_torch.models.pointpillars import pillar_example
+    vox = cfg.voxel
+    out = []
+    for i, n in enumerate(PP_GROUND):
+        ex = pillar_example(make_varied_frame(seed=i, n_ground=n), cfg)
+        out.append((f"{n} ground", ex["points"], ex["point_mask"]))
+    rng = np.random.default_rng(16)
+    n = vox.max_points
+    u = rng.uniform(0.02, 0.98, (n, 2))
+    spread = np.stack([u[:, 0] * (vox.x_max - vox.x_min) + vox.x_min,
+                       u[:, 1] * (vox.y_max - vox.y_min) + vox.y_min,
+                       rng.uniform(vox.z_min, vox.z_max - 0.5, n),
+                       rng.uniform(0, 1, n)], 1)
+    cells = rng.choice(vox.grid_x * vox.grid_y, PP_HEAPED, replace=False)
+    pick = cells[rng.integers(0, PP_HEAPED, n)]
+    heaped = spread.copy()
+    heaped[:, 0] = (pick // vox.grid_y + u[:, 0]) * vox.voxel_size + vox.x_min
+    heaped[:, 1] = (pick % vox.grid_y + u[:, 1]) * vox.voxel_size + vox.y_min
+    full = np.ones(n, bool)
+    out += [("spread", spread, full), ("heaped", heaped, full)]
+    return [(name, torch.from_numpy(np.asarray(p, np.float32)[None]),
+             torch.from_numpy(m[None])) for name, p, m in out]
+
+
+def check_pillars(device):
+    """Phase 16, the kernels: pillarize and pfn_scatter against their
+    plain versions on the card at the network's shapes."""
+    import torch
+    from dcf_torch.models.pointpillars import (PillarConfig,
+                                               pointpillars_config)
+    from dcf_torch.ops import pillars
+    from perfbench.families.pointpillars import pfn_bytes, pillarize_bytes
+    cfg, pc = pointpillars_config(), PillarConfig()
+    vox, P, N, C = cfg.voxel, pc.max_pillars, pc.max_points, pc.features
+    shape = (1, vox.grid_x, vox.grid_y, C)
+    g = torch.Generator().manual_seed(16)
+    w = torch.randn(pillars.NUM_FEATURES, C, generator=g).to(device)
+    b = (0.1 * torch.randn(C, generator=g)).to(device)
+    canvas = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    rows = []
+    for name, pts, mask in pp_clouds(cfg):
+        pts, mask = pts.to(device), mask.to(device)
+        args = (pts, mask, vox, P, N)
+        t = pillars.pillarize(*args)
+        want = pillars.pillarize_plain(*args)
+        for f in t._fields:
+            if not torch.equal(getattr(t, f), getattr(want, f)):
+                raise RuntimeError(f"pillarize ({name}): {f} differs from "
+                                   f"the plain version")
+        got = pillars.pfn_scatter(pts, t, w, b, vox, canvas.zero_()).clone()
+        ref = pillars.pfn_scatter_plain(
+            pts, want, w, b, vox,
+            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"pfn_scatter ({name}): the canvas differs "
+                               f"from the plain version in "
+                               f"{int((got != ref).sum())} elements")
+        in_roi, kept, non_empty = t.stats[0].tolist()
+        rows.append({
+            "cloud": name, "in_roi": in_roi, "non_empty": non_empty,
+            "points_dropped": in_roi - kept,
+            "full_pillars": int((t.counts == N).sum()),
+            "pillarize_ms": graph_ms(lambda: pillars.pillarize(*args)),
+            "pillarize_plain_ms": cuda_ms(
+                lambda: pillars.pillarize_plain(*args), 5),
+            "pillarize_bound_ms": bound_ms(
+                float(pillarize_bytes(args, t)), 0)[0],
+            "pfn_ms": graph_ms(lambda: pillars.pfn_scatter(
+                pts, t, w, b, vox, canvas)),
+            "pfn_plain_ms": cuda_ms(lambda: pillars.pfn_scatter_plain(
+                pts, want, w, b, vox, canvas), 5),
+            "pfn_bound_ms": bound_ms(float(pfn_bytes(
+                (pts, t, w, b, vox, canvas), canvas)), 0)[0]})
+        log(f"pillars ({name}): {json.dumps(rows[-1])}")
+    by = {r["cloud"]: r for r in rows}
+    main = by[f"{PP_GROUND[-1]} ground"]
+    if main["non_empty"] <= P or by["spread"]["non_empty"] <= P or \
+            by["heaped"]["full_pillars"] == 0 or \
+            by["heaped"]["non_empty"] > P:
+        raise RuntimeError(f"pillars: the caps do not bind as meant: "
+                           f"{rows}")
+    entries = []
+    for k, name in (("pillarize", "pillarize"), ("pfn", "pfn_scatter")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "dcf_torch/csrc/pillars.cu", "replaces": None,
+            "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
+            "bound_ms": main[f"{k}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "by_cloud": {r["cloud"]: [r[f"{k}_ms"], r[f"{k}_plain_ms"],
+                                      r[f"{k}_bound_ms"]] for r in rows}})
+    log(f"pillars: {len(rows)} clouds, both kernels bit-equal to their "
+        f"plain versions (P {P}, N {N}, C {C}, bf16 canvas); ms, plain ms, "
+        f"bound ms of the {main['cloud']} frame: pillarize "
+        f"{main['pillarize_ms']:.4f} / {main['pillarize_plain_ms']:.3f} / "
+        f"{main['pillarize_bound_ms']:.5f}, PFN + scatter "
+        f"{main['pfn_ms']:.4f} / {main['pfn_plain_ms']:.3f} / "
+        f"{main['pfn_bound_ms']:.5f}")
+    return entries
+
+
+def serve_pointpillars(device):
+    """Phase 16, the path: 8 PointPillars frames through
+    `make_inference_fn`, launches counted, then again with the tracer on
+    for the host syncs and pillar counters. Returns the launches."""
+    import torch
+    from dcf_torch.data.preprocess import stack_examples
+    from dcf_torch.data.synthetic import make_varied_frame
+    from dcf_torch.eval.inference import make_inference_fn
+    from dcf_torch.models.pointpillars import (init_pointpillars,
+                                               pillar_example,
+                                               pointpillars_config)
+    from dcf_torch.ops import pillars
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.utils import trace
+    cfg = pointpillars_config()
+    model = init_pointpillars(cfg, torch.Generator().manual_seed(0),
+                              device=device)
+    infer = make_inference_fn(cfg, model, device=device)
+    batches = [stack_examples([pillar_example(make_varied_frame(
+        seed=s, n_ground=4000 + 2000 * s), cfg)]) for s in range(9)]
+    infer(batches[-1])                              # warm-up frame
+    torch.cuda.synchronize()
+    pillars.pillarize.launches = pillars.pfn_scatter.launches = 0
+    clip.launches = 0
+    times, n_valid = [], 0
+    for batch in batches[:-1]:
+        t = time.perf_counter()
+        dets = infer(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if not torch.isfinite(dets["boxes"]).all() or \
+                not torch.isfinite(dets["scores"]).all():
+            raise RuntimeError("pointpillars: non-finite detections")
+        n_valid += int(dets["valid"].sum())
+    n = len(times)
+    launches = {"pillarize": pillars.pillarize.launches,
+                "pfn_scatter": pillars.pfn_scatter.launches,
+                "clip_pairs": clip.launches}
+    expect = {"pillarize": n, "pfn_scatter": n, "clip_pairs": n}
+    if launches != expect:
+        raise RuntimeError(f"pointpillars launches {launches} != {expect}")
+    trace.reset()
+    trace.enable()
+    try:
+        for batch in batches[:-1]:
+            infer(batch)
+        torch.cuda.synchronize()
+        c = trace.snapshot()["counters"]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    if c["host_syncs"] > c["nms.rounds"] + n:
+        raise RuntimeError(f"pointpillars: {c['host_syncs']} host syncs for "
+                           f"{c['nms.rounds']} NMS rounds in {n} frames")
+    log(f"pointpillars: {n} frames at B=1 (4,000-18,000 ground points), "
+        f"{sum(p.numel() for p in model.parameters())} params, p50 "
+        f"{np.percentile(times, 50):.3f} ms, p95 "
+        f"{np.percentile(times, 95):.3f} ms, {n_valid} valid detections, "
+        f"launches {launches}; traced: host syncs {c['host_syncs']:.0f}, "
+        f"NMS rounds {c['nms.rounds']:.0f}, pillars kept "
+        f"{c['pillars.kept']:.0f} / dropped {c['pillars.dropped']:.0f}, "
+        f"points in the ROI {c['pillars.points_in_roi']:.0f} / dropped "
+        f"{c['pillars.points_dropped']:.0f}")
+    return launches
+
+
 def build_host_core() -> str:
     """Phase 13's build (started with phase 2's, since every phase's
     frames go through it): the host core compiled by g++ into
@@ -2194,6 +2386,8 @@ def main() -> int:
                                    dets)
     paths["data_parallel"] = data_parallel()
     paths["generalization"] = generalization()
+    kernels += check_pillars(device)
+    paths["pointpillars"] = serve_pointpillars(device)
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

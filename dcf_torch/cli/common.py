@@ -1,25 +1,52 @@
 """Shared CLI plumbing of the port's entry points (mirrors
-`dcf.cli.common`): the configs by name, the data arguments, the
-device argument and the trace flag."""
+`dcf.cli.common`): the configs by name with their models and examples,
+the data arguments, the device argument and the trace flag."""
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from dcf_torch import config as cfgmod
+from dcf_torch.config import Config
+from dcf_torch.data.preprocess import frame_to_example
 from dcf_torch.data.synthetic import SyntheticDataset
+from dcf_torch.models import pointpillars
 from dcf_torch.parallel import mesh as pmesh
+from dcf_torch.params import init_params
 from dcf_torch.utils import trace
 
+
+@dataclasses.dataclass(frozen=True)
+class ConfigEntry:
+    """A config by name: `make()` gives its `Config`, `build(cfg,
+    generator, device=...)` its detector with seeded random weights,
+    `example(frame, cfg)` a frame's example for that detector;
+    `serve_only`, where set, says why the config cannot be trained."""
+
+    make: Callable[[], Config]
+    build: Callable[..., torch.nn.Module] = init_params
+    example: Callable = frame_to_example
+    serve_only: Optional[str] = None
+
+
 CONFIGS = {
-    "lidar": cfgmod.lidar_only_config,
-    "camera": cfgmod.camera_config,
-    "fusion1": cfgmod.fusion_single_scale_config,
-    "full": cfgmod.multi_scale_config,
-    "tiny": cfgmod.tiny_config,        # CI-sized full architecture
+    "lidar": ConfigEntry(cfgmod.lidar_only_config),
+    "camera": ConfigEntry(cfgmod.camera_config),
+    "fusion1": ConfigEntry(cfgmod.fusion_single_scale_config),
+    "full": ConfigEntry(cfgmod.multi_scale_config),
+    "tiny": ConfigEntry(cfgmod.tiny_config),   # CI-sized full architecture
+    "pointpillars": ConfigEntry(
+        pointpillars.pointpillars_config, pointpillars.init_pointpillars,
+        pointpillars.pillar_example,
+        serve_only="training PointPillars is not supported yet: it needs "
+                   "BatchNorm in training mode, the pillar feature net's "
+                   "backward and target assignment at head stride 2"),
 }
 
 

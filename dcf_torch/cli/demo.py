@@ -5,6 +5,7 @@ seeded random weights.
     python -m dcf_torch.cli.demo --config full --data-root /data/kitti
     python -m dcf_torch.cli.demo --config tiny --device cpu
     python -m dcf_torch.cli.demo --config tiny --viz /tmp/demo.png
+    python -m dcf_torch.cli.demo --config pointpillars
 
 With --viz, a bird's-eye view of the frame (points, gt boxes green,
 detections red by score) is written as a PNG; with --trace PATH, the
@@ -20,10 +21,9 @@ import torch
 from dcf_torch.cli.common import (CONFIGS, add_data_args, add_trace_arg,
                                   resolve_dataset, tracing)
 from dcf_torch.data.kitti import CLASS_NAMES
-from dcf_torch.data.preprocess import frame_to_example, stack_examples
+from dcf_torch.data.preprocess import stack_examples
 from dcf_torch.device import resolve_device
 from dcf_torch.eval.inference import make_inference_fn, to_host
-from dcf_torch.params import init_params
 from dcf_torch.utils.viz import draw_bev
 
 
@@ -42,12 +42,13 @@ def main(argv=None) -> None:
     if not args.synthetic and not args.data_root:
         args.synthetic = 1
 
-    cfg = CONFIGS[args.config]()
+    entry = CONFIGS[args.config]
+    cfg = entry.make()
     frame = resolve_dataset(args)[args.frame]
-    model = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    model = entry.build(cfg, torch.Generator().manual_seed(0), device=device)
     infer = make_inference_fn(cfg, model, device=device)
     with tracing(args.trace):
-        out = to_host(infer(stack_examples([frame_to_example(frame, cfg)])))
+        out = to_host(infer(stack_examples([entry.example(frame, cfg)])))
 
     keep = out["valid"][0]
     boxes = out["boxes"][0][keep]

@@ -60,9 +60,12 @@ def main(argv=None) -> None:
     add_trace_arg(p)
     add_data_args(p)
     args = p.parse_args(argv)
+    entry = CONFIGS[args.config]
+    if entry.serve_only:
+        p.error(f"--config {args.config}: {entry.serve_only}")
     device = resolve_device(args.device)
 
-    cfg = CONFIGS[args.config]()
+    cfg = entry.make()
     dataset = resolve_dataset(args)
     gt_db = GTDatabase.load(args.gt_db) if args.gt_db else None
     # a group this call joins is left again at the end

@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from dcf_torch.config import Config
 from dcf_torch.data.kitti import CLASS_NAMES, write_kitti_result
 from dcf_torch.data.preprocess import frame_to_example, stack_examples
@@ -19,17 +21,19 @@ from dcf_torch.eval.inference import make_inference_fn, to_host
 from dcf_torch.eval.kitti_eval import (Annotation, annotation_from_frame,
                                        detection_annotation,
                                        evaluate_annotations)
-from dcf_torch.models.detector import ContFuseDetector
 
 
 def detect(cfg: Config, infer: Callable, dataset,
            result_dir: Optional[str] = None,
            score_threshold: Optional[float] = None,
-           num_frames: Optional[int] = None, batch_size: int = 8
+           num_frames: Optional[int] = None, batch_size: int = 8,
+           example: Callable = frame_to_example
            ) -> Tuple[List[Annotation], List[Annotation]]:
     """Serve the first `num_frames` frames of `dataset` through `infer`
     (`make_inference_fn`) in batches of `batch_size`: the last batch is
     padded by repeating its first frame, and the padding is dropped.
+    `example(frame, cfg)` builds a frame's example (`frame_to_example`, or
+    `models.pointpillars.pillar_example` for a pillar network).
     Returns the ground truth and the detections (score >= the threshold,
     `cfg.head.score_threshold` by default) as devkit annotations, one
     per frame; with `result_dir`, also writes `<frame_id>.txt` there."""
@@ -45,7 +49,7 @@ def detect(cfg: Config, infer: Callable, dataset,
         frames = [dataset[i] for i in range(start, min(start + bs, n))]
         padded = frames + [frames[0]] * (bs - len(frames))
         out = to_host(infer(stack_examples(
-            [frame_to_example(f, cfg) for f in padded])))
+            [example(f, cfg) for f in padded])))
         for j, frame in enumerate(frames):
             keep = out["valid"][j] & (out["scores"][j] >= thr)
             boxes = out["boxes"][j][keep]
@@ -63,7 +67,7 @@ def detect(cfg: Config, infer: Callable, dataset,
     return gts, dets
 
 
-def run_eval(cfg: Config, model: ContFuseDetector, dataset,
+def run_eval(cfg: Config, model: torch.nn.Module, dataset,
              result_dir: Optional[str] = None,
              score_threshold: Optional[float] = None,
              num_frames: Optional[int] = None,
@@ -71,7 +75,8 @@ def run_eval(cfg: Config, model: ContFuseDetector, dataset,
              batch_size: int = 8,
              metrics: Sequence[str] = ("3d", "bev"),
              infer: Optional[Callable] = None,
-             device="cuda") -> Dict[str, float]:
+             device="cuda",
+             example: Callable = frame_to_example) -> Dict[str, float]:
     """Evaluate `model` over a dataset; returns the AP dict
     (`evaluate_annotations`: {"Car_3d_moderate": AP, ...}).
 
@@ -82,12 +87,13 @@ def run_eval(cfg: Config, model: ContFuseDetector, dataset,
     infer: `make_inference_fn(cfg, model, device)`, built once and passed
     to every call that evaluates the same model (each build moves the
     model and builds the anchors); by default one is built here on
-    `device`.
+    `device`. `example`: as in `detect`.
     """
     if infer is None:
         infer = make_inference_fn(cfg, model, device=device)
     gts, dets = detect(cfg, infer, dataset, result_dir=result_dir,
                        score_threshold=score_threshold,
-                       num_frames=num_frames, batch_size=batch_size)
+                       num_frames=num_frames, batch_size=batch_size,
+                       example=example)
     return evaluate_annotations(gts, dets, metrics=metrics,
                                 num_points=num_points)

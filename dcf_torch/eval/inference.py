@@ -16,7 +16,6 @@ import torch
 from dcf_torch.config import Config
 from dcf_torch.device import resolve_device
 from dcf_torch.models.anchors import generate_anchors
-from dcf_torch.models.detector import ContFuseDetector
 from dcf_torch.models.head import decode_and_nms, flatten_predictions
 from dcf_torch.utils import trace
 
@@ -39,16 +38,19 @@ def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         return {k: v.numpy() for k, v in host.items()}
 
 
-def make_inference_fn(cfg: Config, model: ContFuseDetector, device="cuda"
+def make_inference_fn(cfg: Config, model: torch.nn.Module, device="cuda"
                       ) -> Callable[[Dict[str, np.ndarray]],
                                     Dict[str, torch.Tensor]]:
     """Returns infer(batch) -> {"boxes" [B, D, 7], "scores" [B, D],
     "classes" [B, D], "valid" [B, D]} as tensors on `device`.
 
-    `model` is moved to `device` and put in eval mode; the anchors are
-    built once and kept there. An int8 model (`quant_config(cfg)`,
-    `dcf_torch.quant`) serves with the calibration in its buffers; one
-    that was never calibrated is refused.
+    `model` is a detector: a module whose forward takes the batch dict and
+    returns the NHWC head maps {"cls" [B, H, W, A], "reg" [B, H, W, 7A],
+    "dir" [B, H, W, 2A]} at `cfg.backbone.head_stride` (`ContFuseDetector`,
+    `PointPillarsDetector`). It is moved to `device` and put in eval mode;
+    the anchors are built once and kept there. An int8 model
+    (`quant_config(cfg)`, `dcf_torch.quant`) serves with the calibration
+    in its buffers; one that was never calibrated is refused.
     """
     mode = cfg.backbone.quant_mode
     if model.cfg.backbone.quant_mode != mode:

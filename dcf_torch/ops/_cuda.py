@@ -57,6 +57,14 @@ _SIGNATURES = {
     # slab, oh transposed, out, blocks, stream
     "dcf_selection_mma_int8": (_P, _P, _P, _I, _P),
     "dcf_selection_mma_bf16": (_P, _P, _P, _I, _P),
+    # points, mask, first, scratch, coords, counts, pmask, table, stats,
+    # B, n, gx, gy, P, N, x_min, y_min, z_min, z_max, inv, stream
+    "dcf_pillarize": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _F, _F, _F, _F, _F, _P),
+    # points, table, counts, pmask, coords, weight, bias, canvas, out_bf16,
+    # B, n, P, N, C, gx, gy, x_min, y_min, voxel_size, stream
+    "dcf_pfn_scatter": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()

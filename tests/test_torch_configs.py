@@ -95,7 +95,7 @@ NAMES = ["camera", "fusion1"]
 
 def test_tiny_variants_keep_the_configs_shape():
     for name in NAMES:
-        full, tiny = CONFIGS[name](), _tiny(tcfg, name)
+        full, tiny = CONFIGS[name].make(), _tiny(tcfg, name)
         assert tiny.with_camera and tiny.with_fusion == full.with_fusion
         assert len(tiny.anchors) == 1 and tiny.anchors[0].name == "Car"
         assert tiny.backbone.fusion_strides == full.backbone.fusion_strides

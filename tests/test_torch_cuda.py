@@ -406,3 +406,62 @@ def test_int8_conv_on_card_matches_plain(card, B, H, W, C, O, k, s):
     got = int8.int8_conv2d(xq, wq, s)
     assert int8.int8_conv2d.launches == before + 1
     assert torch.equal(got, int8.int8_conv2d_plain(xq, wq, s))
+
+
+def _pillar_case(seed, device, n=24576, P=12000, N=100, crowd=0):
+    """A cropped cloud at the PointPillars grid (uniform ground, `crowd`
+    points stacked in a few cells), its mask, the voxel config, P, N."""
+    from dcf_torch.models.pointpillars import pointpillars_config
+    vox = pointpillars_config().voxel
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((1, n, 4), np.float32)
+    pts[0, :, 0] = rng.uniform(-1.0, 70.0, n)
+    pts[0, :, 1] = rng.uniform(-40.0, 40.0, n)
+    pts[0, :, 2] = rng.uniform(-3.5, 1.5, n)
+    pts[0, :, 3] = rng.uniform(0.0, 1.0, n)
+    if crowd:
+        pts[0, :crowd, :2] = rng.uniform(10.0, 10.5, (crowd, 2))
+    mask = rng.uniform(size=(1, n)) < 0.85
+    return (torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device),
+            vox, P, N)
+
+
+@pytest.mark.parametrize("seed, n, P, N, crowd", [
+    (0, 24576, 12000, 100, 0), (1, 24576, 12000, 100, 3000),
+    (2, 24576, 4000, 100, 0), (3, 24576, 12000, 8, 2000),
+    (4, 5000, 12000, 100, 0), (5, 0, 12000, 100, 0)])
+def test_pillar_kernels_match_plain(card, seed, n, P, N, crowd):
+    """Pillarize's tables and the PFN's canvas (bf16 and float32) equal
+    their plain versions exactly, with either cap binding."""
+    from dcf_torch.ops import pillars
+    pts, mask, vox, P, N = _pillar_case(seed, card, n, P, N, crowd)
+    got = pillars.pillarize(pts, mask, vox, P, N)
+    want = pillars.pillarize_plain(pts, mask, vox, P, N)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(size=(9, 64)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32)).to(card)
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (1, vox.grid_x, vox.grid_y, 64)
+        out = pillars.pfn_scatter(pts, got, w, b, vox,
+                                  torch.zeros(shape, dtype=dtype, device=card))
+        ref = pillars.pfn_scatter_plain(pts, want, w, b, vox, torch.zeros(
+            shape, dtype=dtype, device=card))
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), dtype
+
+
+def test_pillar_wrappers_reject_bad_inputs(card):
+    from dcf_torch.ops import pillars
+    pts, mask, vox, P, N = _pillar_case(0, card, 1000)
+    with pytest.raises(ValueError):
+        pillars.pillarize(pts.double(), mask, vox, P, N)
+    with pytest.raises(ValueError):
+        pillars.pillarize(pts, mask, vox, 60000, N)
+    t = pillars.pillarize(pts, mask, vox, P, N)
+    w = torch.zeros((9, 48), device=card)
+    with pytest.raises(ValueError):
+        pillars.pfn_scatter(pts, t, w, torch.zeros(48, device=card), vox,
+                            torch.zeros((1, vox.grid_x, vox.grid_y, 48),
+                                        device=card))
