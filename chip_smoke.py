@@ -141,7 +141,18 @@ Phases, each printed on its own line with the seconds elapsed:
      weights: 1 pillarize, 1 PFN and 1 clip launch a frame (the
      `pointpillars` path), p50 / p95 ms, and, served again with the
      program's tracer on, host syncs a frame no more than NMS rounds + 1
-     (pillarization adds none) and the pillar counters.
+     (pillarization adds none) and the pillar counters;
+ 17. the graphed serving forward (`dcf_torch.utils.graphs`): 8
+     `multi_scale_config()` frames in bf16 with seeded weights served
+     through `make_inference_fn` with the tracer on, first with the
+     forward held eager, then as served (the first frame eager, the
+     second captured, the rest replayed): the head maps returned bit-equal
+     to the eager pass's frame by frame, read after every frame was
+     served (so no replay overwrote a map handed out), the detections
+     equal, `graph.captures` 1 and `graph.forwards` 6, the fusion
+     counters equal, 4 fusion and 1 clip launches and one call of the
+     image backbone and of each fusion module a frame; `infer.forward`
+     host ms a frame eager and replayed (p50), and peak memory.
 
 Then one JSON line describing every kernel (launches: the sum over the
 paths, and per path), and last the line `{"ok": true, "device": {...}}`.
@@ -1212,7 +1223,9 @@ def _recorded(module, name, calls):
 
     def record(*args):
         out = orig(*args)
-        calls.append((args, out))
+        # a graphed forward rewrites its tensors in place on its next call
+        calls.append((tuple(a.clone() if hasattr(a, "clone") else a
+                            for a in args), out))
         return out
     setattr(module, name, record)
     try:
@@ -2311,6 +2324,100 @@ def serve_pointpillars(device):
     return launches
 
 
+def serve_graphs(device):
+    """Phase 17, the path: 8 frames served eager, then as served (graphs
+    replayed from the third frame on), compared frame by frame. Returns
+    the graphed pass's launches."""
+    import torch
+    from dcf_torch.config import multi_scale_config
+    from dcf_torch.data.preprocess import frame_to_example, stack_examples
+    from dcf_torch.data.synthetic import make_varied_frame
+    from dcf_torch.eval.inference import make_inference_fn, to_host
+    from dcf_torch.ops.clip import rotated_intersection_area_pairs as clip
+    from dcf_torch.ops.fusion import fused_fusion
+    from dcf_torch.params import init_params
+    from dcf_torch.utils import trace
+    cfg = multi_scale_config()
+    model = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    infer = make_inference_fn(cfg, model, device=device)
+    batches = [stack_examples([frame_to_example(make_varied_frame(seed=s),
+                                                cfg)]) for s in range(8)]
+    n = len(batches)
+    maps, calls = [], {"image_backbone": 0, "fusion": 0}
+
+    def counter(key):
+        return lambda _m, _a, _o: calls.__setitem__(key, calls[key] + 1)
+    hooks = [model.register_forward_hook(lambda _m, _a, o: maps.append(o)),
+             model.image_backbone.register_forward_hook(
+                 counter("image_backbone"))]
+    hooks += [m.register_forward_hook(counter("fusion"))
+              for name, m in model.named_children()
+              if name.startswith("fusion_s")]
+
+    def served():
+        maps.clear()
+        for k in calls:
+            calls[k] = 0
+        fused_fusion.launches = clip.launches = 0
+        trace.reset()
+        trace.enable()
+        try:
+            dets = [to_host(infer(b)) for b in batches]
+            snap = trace.snapshot()
+        finally:
+            trace.enable(False)
+            trace.reset()
+        ms = [s["dur_us"] * 1e-3 for s in snap["spans"]
+              if s["name"] == "infer.forward"]
+        launches = {"fusion_fwd": fused_fusion.launches,
+                    "clip_pairs": clip.launches}
+        return dets, list(maps), ms, snap["counters"], launches, dict(calls)
+
+    try:
+        model.replays = lambda inputs: False       # the forward held eager
+        try:
+            want_dets, want_maps, eager_ms, c0, _, _ = served()
+        finally:
+            del model.replays
+        torch.cuda.reset_peak_memory_stats()
+        dets, got_maps, graph_ms, c, launches, seen = served()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for h in hooks:
+            h.remove()
+    for i, (got, want) in enumerate(zip(got_maps, want_maps)):
+        for k, v in want.items():
+            if not torch.equal(got[k], v):
+                raise RuntimeError(
+                    f"graphs: frame {i}'s {k} map differs from the eager "
+                    f"forward's, max|err| {(got[k] - v).abs().max().item()}")
+    for i, (got, want) in enumerate(zip(dets, want_dets)):
+        for k, v in want.items():
+            if not np.array_equal(got[k], v):
+                raise RuntimeError(f"graphs: frame {i}'s detections ({k}) "
+                                   f"differ from the eager forward's")
+    expect = {"graph.captures": 1.0, "graph.forwards": float(n - 2)}
+    got_c = {k: c.get(k, 0.0) for k in expect}
+    if got_c != expect or any(k in c0 for k in expect):
+        raise RuntimeError(f"graphs: counters {got_c} != {expect} (eager "
+                           f"pass: {c0})")
+    for k in ("fusion.bin_eligible", "fusion.bin_dropped", "fusion.pairs"):
+        if c[k] != c0[k]:
+            raise RuntimeError(f"graphs: {k} {c[k]} != {c0[k]} eager")
+    nf = len(cfg.backbone.fusion_strides)
+    if launches != {"fusion_fwd": nf * n, "clip_pairs": n} or \
+            seen != {"image_backbone": n, "fusion": nf * n}:
+        raise RuntimeError(f"graphs: launches {launches}, module calls "
+                           f"{seen} in {n} frames")
+    log(f"graphs: {n} frames at B=1, maps bit-equal to the eager forward's "
+        f"and detections equal; infer.forward host p50 eager "
+        f"{np.percentile(eager_ms, 50):.3f} ms, replayed "
+        f"{np.percentile(graph_ms[2:], 50):.3f} ms (capture frame "
+        f"{graph_ms[1]:.1f} ms); counters {got_c}, launches {launches}, "
+        f"module calls {seen}, peak memory {peak / 2 ** 20:.1f} MiB")
+    return launches
+
+
 def build_host_core() -> str:
     """Phase 13's build (started with phase 2's, since every phase's
     frames go through it): the host core compiled by g++ into
@@ -2388,6 +2495,7 @@ def main() -> int:
     paths["generalization"] = generalization()
     kernels += check_pillars(device)
     paths["pointpillars"] = serve_pointpillars(device)
+    paths["graphs"] = serve_graphs(device)
     for k in kernels:
         by_path = {p: n.get(k["name"], 0) for p, n in paths.items()}
         k["launches"] = sum(by_path.values())

@@ -138,5 +138,8 @@ class BasicBlock(nn.Module):
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x spatial upsample (NHWC)."""
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    """Nearest-neighbour 2x spatial upsample (NHWC), as a broadcast copy:
+    no host synchronisation, so a CUDA graph can capture it."""
+    B, H, W, C = x.shape
+    return x[:, :, None, :, None].expand(B, H, 2, W, 2, C).reshape(
+        B, 2 * H, 2 * W, C)

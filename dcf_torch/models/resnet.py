@@ -14,6 +14,7 @@ from torch import nn
 
 from dcf_torch.config import BackboneConfig
 from dcf_torch.models.layers import BasicBlock, ConvNorm
+from dcf_torch.utils.graphs import EAGER
 
 
 class ImageBackbone(nn.Module):
@@ -33,9 +34,15 @@ class ImageBackbone(nn.Module):
                                 BasicBlock(cin, c, stride, quant=q))
                 bi, cin = bi + 1, c
 
-    def forward(self, image: torch.Tensor) -> Dict[int, torch.Tensor]:
+    def forward(self, image: torch.Tensor, seg=EAGER
+                ) -> Dict[int, torch.Tensor]:
         """image: [B, H, W, 3] in [0, 1] (H, W multiples of 4), or the
-        host's space-to-depth(4) layout [B, H/4, W/4, 48]."""
+        host's space-to-depth(4) layout [B, H/4, W/4, 48]. `seg` runs the
+        backbone as one segment of a graphed forward
+        (`dcf_torch.utils.graphs`; a plain call by default)."""
+        return seg.run("image_backbone", self._pyramid, image)
+
+    def _pyramid(self, image: torch.Tensor) -> Dict[int, torch.Tensor]:
         cfg = self.cfg
         x = image.to(getattr(torch, cfg.dtype))
         B, H, W, C = x.shape

@@ -159,7 +159,24 @@ def bin_points_dense(points: torch.Tensor, mask: torch.Tensor,
     Returns:
       DenseBins(data [B, H, W, capacity, D], valid [B, H, W, capacity]);
       a cell keeps its first `capacity` valid points in arrival order.
+      The tracer's device counters `fusion.bin_eligible` and
+      `fusion.bin_dropped` count the valid points inside the grid and
+      those a full cell turned away (`count_bin_drops`).
     """
+    bins, inside, kept = bin_points_dense_tally(points, mask, origin,
+                                                cell_size, grid_hw, capacity)
+    count_bin_drops(inside, kept)
+    return bins
+
+
+def bin_points_dense_tally(points: torch.Tensor, mask: torch.Tensor,
+                           origin: Tuple[float, float], cell_size: float,
+                           grid_hw: Tuple[int, int], capacity: int
+                           ) -> Tuple[DenseBins, torch.Tensor, torch.Tensor]:
+    """`bin_points_dense` without counting: (bins, inside, kept), where
+    inside [B * P] marks the valid points inside the grid and kept [B * P]
+    those given a slot, both in the order of the points sorted by cell
+    (what `count_bin_drops` reads)."""
     H, W = grid_hw
     B, P, D = points.shape
     dev = points.device
@@ -171,17 +188,24 @@ def bin_points_dense(points: torch.Tensor, mask: torch.Tensor,
     rank = _rank_within_runs(sorted_cell)
     inside = sorted_cell < B * H * W
     ok = (rank < capacity) & inside
-    if trace.active():
-        trace.count_device("fusion.bin_eligible", inside)
-        trace.count_device("fusion.bin_dropped", inside & ~ok)
     flat = torch.where(ok, sorted_cell * capacity + rank, n_slots)  # drop
 
     data = torch.zeros((n_slots + 1, D), dtype=points.dtype, device=dev)
     data[flat] = points.reshape(B * P, D)[order]
     valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev)
-    valid[flat] = True
-    return DenseBins(data[:n_slots].reshape(B, H, W, capacity, D),
-                     valid[:n_slots].reshape(B, H, W, capacity))
+    valid.index_fill_(0, flat, True)   # no host scalar: capturable
+    return (DenseBins(data[:n_slots].reshape(B, H, W, capacity, D),
+                      valid[:n_slots].reshape(B, H, W, capacity)),
+            inside, ok)
+
+
+def count_bin_drops(inside: torch.Tensor, kept: torch.Tensor) -> None:
+    """Add the masks of `bin_points_dense_tally` to the tracer's device
+    counters `fusion.bin_eligible` and `fusion.bin_dropped` (while it
+    records)."""
+    if trace.active():
+        trace.count_device("fusion.bin_eligible", inside)
+        trace.count_device("fusion.bin_dropped", inside & ~kept)
 
 
 def cell_centers(H: int, W: int, origin: Tuple[float, float],

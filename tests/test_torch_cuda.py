@@ -465,3 +465,115 @@ def test_pillar_wrappers_reject_bad_inputs(card):
         pillars.pfn_scatter(pts, t, w, torch.zeros(48, device=card), vox,
                             torch.zeros((1, vox.grid_x, vox.grid_y, 48),
                                         device=card))
+
+
+GRAPH_FRAMES = 5
+
+
+@pytest.fixture(scope="module")
+def graphed_serving():
+    """`contfuse-ms` (`multi_scale_config()`, bf16, seeded weights) served
+    at B=1 on GRAPH_FRAMES frames through `make_inference_fn`: first with
+    the forward held eager, then as served (frame 0 eager, frame 1
+    captured, the rest replayed), with the tracer on, hooks on the image
+    backbone and each fusion module, and the fusion and clip launches
+    counted; every returned head map kept until all frames were served."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from dcf_torch.data.preprocess import stack_examples
+    from dcf_torch.eval.inference import make_inference_fn, to_host
+    from dcf_torch.params import init_params
+    from dcf_torch.utils import trace
+    device = torch.device("cuda")
+    cfg = multi_scale_config()
+    model = init_params(cfg, torch.Generator().manual_seed(1), device=device)
+    infer = make_inference_fn(cfg, model, device=device)
+    batches = [stack_examples([frame_to_example(
+        make_varied_frame(seed=10 + s), cfg)]) for s in range(GRAPH_FRAMES)]
+    maps, calls = [], {}
+
+    def count(key):
+        def hook(_m, _a, _o):
+            calls[key] = calls.get(key, 0) + 1
+        return hook
+    hooks = [model.register_forward_hook(lambda _m, _a, o: maps.append(o)),
+             model.image_backbone.register_forward_hook(
+                 count("image_backbone"))]
+    hooks += [m.register_forward_hook(count(name))
+              for name, m in model.named_children()
+              if name.startswith("fusion_s")]
+
+    def served():
+        maps.clear()
+        calls.clear()
+        launches = (fusion.fused_fusion.launches,
+                    clip.rotated_intersection_area_pairs.launches)
+        trace.reset()
+        trace.enable()
+        try:
+            dets = [to_host(infer(b)) for b in batches]
+            counters = trace.snapshot()["counters"]
+        finally:
+            trace.enable(False)
+            trace.reset()
+        return {"dets": dets, "maps": list(maps), "counters": counters,
+                "calls": dict(calls),
+                "fusion_launches": fusion.fused_fusion.launches - launches[0],
+                "clip_launches":
+                    clip.rotated_intersection_area_pairs.launches
+                    - launches[1]}
+
+    try:
+        model.replays = lambda inputs: False       # the forward held eager
+        try:
+            eager = served()
+        finally:
+            del model.replays
+        graphed = served()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"eager": eager, "graphed": graphed, "cfg": cfg}
+
+
+def test_graph_replay_maps_equal_eager(graphed_serving):
+    """Every frame's head maps, read after all frames were served (so a
+    map that aliased the graph's outputs would hold the last frame's),
+    equal the eager forward's bit for bit."""
+    eager, graphed = graphed_serving["eager"], graphed_serving["graphed"]
+    assert len(graphed["maps"]) == GRAPH_FRAMES
+    for got, want in zip(graphed["maps"], eager["maps"]):
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
+
+def test_graph_replay_detections_equal_eager(graphed_serving):
+    eager, graphed = graphed_serving["eager"], graphed_serving["graphed"]
+    for got, want in zip(graphed["dets"], eager["dets"]):
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v)
+
+
+def test_graph_counters(graphed_serving):
+    """One capture and GRAPH_FRAMES - 2 replayed forwards; the fusion
+    layers' device counters as the eager forward counts them."""
+    eager = graphed_serving["eager"]["counters"]
+    got = graphed_serving["graphed"]["counters"]
+    assert got["graph.captures"] == 1
+    assert got["graph.forwards"] == GRAPH_FRAMES - 2
+    assert "graph.captures" not in eager and "graph.forwards" not in eager
+    for k in ("fusion.bin_eligible", "fusion.bin_dropped", "fusion.pairs"):
+        assert got[k] == eager[k] > 0, k
+
+
+def test_graph_replay_launches_and_hooks(graphed_serving):
+    """The hand-written fusion kernel still launches once per fusion layer
+    a frame (4) and the clip once, and forward hooks on the image backbone
+    and on each fusion module fire once a frame."""
+    cfg, graphed = graphed_serving["cfg"], graphed_serving["graphed"]
+    nf = len(cfg.backbone.fusion_strides)
+    assert graphed["fusion_launches"] == nf * GRAPH_FRAMES
+    assert graphed["clip_launches"] == GRAPH_FRAMES
+    names = ["image_backbone"] + [f"fusion_s{s}"
+                                  for s in cfg.backbone.fusion_strides]
+    assert graphed["calls"] == {n: GRAPH_FRAMES for n in names}
